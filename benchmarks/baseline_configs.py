@@ -14,8 +14,8 @@ many devices exist. Prints one JSON line per run.
 
 Big-N simulation costs tens of host-CPU minutes (100K x 100K ~ 40 min)
 while the fit is seconds, so the simulated packed matrix + truth theta
-are cached under /tmp keyed by shape/seed/missing-frac (--no-sim-cache
-to disable).
+are cached under .sim_cache/ in the checkout, keyed by
+shape/seed/missing-frac (--no-sim-cache to disable).
 """
 
 from __future__ import annotations
@@ -27,6 +27,14 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+SIM_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".sim_cache")
+
+
+def cache_path(spec, seed, n, l, k, missing):
+    return os.path.join(SIM_CACHE, f"terasim_{spec['name']}_s{seed}"
+                                   f"_{n}x{l}k{k}_m{missing}.npz")
 
 CONFIGS = {
     1: dict(n=1000, l=10_000, k=3, batch=256, name="sim-1Kx10K-K3"),
@@ -88,15 +96,9 @@ def main():
                          "(real data is 1-5%% missing)")
     ap.add_argument("--no-sim-cache", dest="sim_cache",
                     action="store_false", default=True,
-                    help="disable the /tmp simulation cache")
-    ap.add_argument("--fast", action="store_true",
-                    help="big-N fast preset: approx-reciprocal stats "
-                         "divides (quality A/B in benchmarks/results/"
-                         "bigN_quality_ab.json)")
+                    help="disable the .sim_cache simulation cache")
     ap.add_argument("--accel", action="store_true",
-                    help="force local_accel on (it is the config default "
-                         "since round 4; study in benchmarks/results/"
-                         "local_accel_ab.json)")
+                    help="force local_accel on (the config default)")
     ap.add_argument("--no-accel", action="store_true",
                     help="plain reference schedule: local_accel off + "
                          "local_iters=16")
@@ -117,8 +119,7 @@ def main():
     from terastructure_tpu.utils import mean_abs_theta_error
     from terastructure_tpu.utils.profiling import StepMeter
 
-    cache = (f"/tmp/terasim_{spec['name']}_s{args.seed}"
-             f"_{n}x{l}k{k}_m{args.missing_frac}.npz"
+    cache = (cache_path(spec, args.seed, n, l, k, args.missing_frac)
              if args.sim_cache else None)
     if cache and os.path.exists(cache):
         t0 = time.time()
@@ -130,18 +131,18 @@ def main():
     else:
         packed, theta, sim_s = _simulate(args, n, l, k)
         if cache:
+            os.makedirs(SIM_CACHE, exist_ok=True)
             np.savez(cache, packed=packed, theta=theta)
 
     # Packed-native eval carve (data/dataset.py): entry count is capped
     # only by MC-error needs; the UNIQUE eval SNPs are pooled so
     # local-mode scoring (O(N * uniq SNPs) lambda re-solve per check)
-    # stays within the step budget without capping entries. Round 5:
-    # pool at big L too, not only big N — config #3's unpooled carve
-    # spread 200K entries over ~196K unique SNPs, making each rfreq
-    # check re-solve ~2x the chunk's own SNP count (the dominant term
-    # of the 565.9K-sustained vs 2.1M-steady gap, VERDICT r4 #3). 2048
-    # pooled SNPs keep ~100 entries/SNP — the convergence signal's MC
-    # error is set by the ENTRY count, which is unchanged.
+    # stays within the step budget without capping entries. Pool at big
+    # L too, not only big N: an unpooled carve at config #3 spreads 200K
+    # entries over ~196K unique SNPs, making each rfreq check re-solve
+    # ~2x the chunk's own SNP count. 2048 pooled SNPs keep ~100
+    # entries/SNP — the convergence signal's MC error is set by the
+    # ENTRY count, which is unchanged.
     t0 = time.time()
     n_eval = min(max(int(0.005 * n * l), 100), 200_000)
     pool = 2048 if (n >= 50_000 or l >= 131_072) else 0
@@ -173,8 +174,6 @@ def main():
         rfreq=100, max_steps=args.max_steps or 20_000, seed=args.seed,
         snp_group=8, init=args.init_mode,
     )
-    if args.fast:
-        cfg = cfg.replace(stats_approx_div=True)
     if args.accel:
         cfg = cfg.replace(local_accel=True)
     if args.no_accel:
@@ -199,7 +198,7 @@ def main():
         res = fit(cfg, data, callback=cb)
     theta_hat = np.asarray(psd.theta_mean(res.state.gamma))[:n]
 
-    # Time-to-quality (VERDICT r4 weak #1): wall seconds until the
+    # Time-to-quality: wall seconds until the
     # validation ll first lands within 1e-4 nats of the run's best —
     # the metric that stays comparable across schedule-changing levers
     # (accel vs plain at different pass counts), unlike fixed-step

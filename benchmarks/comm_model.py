@@ -1,24 +1,20 @@
-"""Measured per-step collective volume + ICI scaling-roofline model.
+"""Measured per-step collective volume of the sharded step.
 
-The hardware scaling-efficiency acceptance row (BASELINE.json: >=80%
-from 1 chip to >=2 hosts at 1M x 1M K=10) is blocked on having one
-chip; the CPU-mesh proxy only measures host core contention. This
-harness produces the strongest evidence available without a pod:
+Compiles the real sharded step (parallel/sharded.py) on an emulated
+multi-device CPU mesh and reads the collective operations and their
+byte volumes straight out of the optimized HLO — not from the source's
+intent, from what XLA actually scheduled — and checks them against the
+analytic model. Per step on an (I, S) mesh the step's only
+communication is
+  - lambda-stats psum over 'ind': 2 x (B/S) x K f32 per local
+    iteration (+1 final pair)        -> only when I > 1
+  - gamma-stat  psum over 'snp': (N/I) x K f32 once
 
-1. MEASURE: compile the real sharded step (parallel/sharded.py) on an
-   emulated multi-device mesh and read the collective operations and
-   their byte volumes straight out of the optimized HLO — not from the
-   source's intent, from what XLA actually scheduled.
-2. CHECK the analytic model against those bytes. Per step on an
-   (I, S) mesh the step's only communication is
-     - lambda-stats psum over 'ind': 2 x (B/S) x K f32 per local
-       iteration (+1 final pair)        -> only when I > 1
-     - gamma-stat  psum over 'snp': (N/I) x K f32 once
-3. PROJECT: combine the modeled bytes at the target config with the
-   MEASURED single-chip step time and a conservative ICI all-reduce
-   bandwidth to get scaling efficiency vs chip count.
+overlap_report() checks that the pipelined chunk runner's next-step
+gather does not depend on the gamma all-reduce. tests/test_sharded.py
+pins both.
 
-    python benchmarks/comm_model.py            # emulated 8-dev measure+model
+    python benchmarks/comm_model.py            # emulated 8-dev measure
 """
 
 from __future__ import annotations
@@ -102,8 +98,7 @@ def measured_collective_bytes(n=256, l=1024, k=4, batch=128, ind=2, snp=4,
     # elide bare f32->bf16->f32 convert pairs, and the CPU backend
     # promotes bf16 collectives back to f32 via BFloat16Normalization,
     # so neither the converts nor the wire dtype are reliable evidence
-    # here; on TPU the bf16 all-reduce lowers natively at half
-    # payload). Match the op on the statistic's local shape.
+    # here). Match the op on the statistic's local shape.
     summary["gamma_bf16_round"] = bool(re.search(
         rf"f32\[{n // ind},{k}\][^=]*\breduce-precision\(", hlo))
     # analytic check (per compiled program = ONE step):
@@ -170,7 +165,7 @@ def overlap_report(n=256, l=1024, k=4, batch=128, ind=2, snp=4, nsteps=3):
     next-step minibatch gather is dataflow-INDEPENDENT of the gamma
     all-reduce — the structural property that lets the latency-hiding
     scheduler start the collective before the gather and finish it
-    after (async all-reduce spanning real work on TPU).
+    after (an async all-reduce spanning real work).
 
     Returns {gamma_ar: instr, rows_producers: [...],
     rows_depend_on_allreduce: bool} for the while-body computation of
@@ -236,89 +231,9 @@ def overlap_report(n=256, l=1024, k=4, batch=128, ind=2, snp=4, nsteps=3):
     return report
 
 
-def projected_efficiency(step_ms_1chip, n, k, b, iters_eff=8,
-                         ici_gbps=45.0, w_bytes=None, hbm_gbps=819.0,
-                         overlap=False, meshes=None, b_ref=None,
-                         gamma_wire_bytes=4):
-    """Scaling table for snp-only and 2-D meshes at a target config.
-
-    All-reduce cost model: ring, 2*(D-1)/D * bytes per device at
-    `ici_gbps` effective per-device collective bandwidth (conservative
-    for v5e's 2-D torus). Compute time per chip scales with the local
-    minibatch share (B/S) and local individuals (N/I); passing b !=
-    b_ref scales compute linearly in the global batch (per-step work is
-    O(B*N*K)).
-
-    overlap=True models the round-5 pipelined chunk runner
-    (parallel/sharded.make_sharded_run_chunk): the gamma all-reduce
-    runs asynchronously across the next step's minibatch gather, so its
-    exposed cost is max(0, t_gam - gather_window). The window counts
-    ONLY the gather's HBM time ((B/S) x (W/I) bytes at hbm_gbps) —
-    conservative; the scheduler can also hide it behind the subsample
-    decode and index computation, which this model ignores. The
-    per-iteration lambda psums stay fully exposed (they sit on the
-    solve's critical path by construction).
-
-    gamma_wire_bytes=2 models cfg.gamma_psum_dtype='bf16': the
-    N-proportional gamma statistic rides the ring at half payload
-    (quality A/B: results/gamma_bf16_ab.json; rounding pinned in
-    tests/test_sharded.py). The lambda pairs stay f32."""
-    rows = []
-    b_ref = b_ref or b
-    for (ind, snp) in meshes or [(1, 2), (1, 4), (1, 8), (2, 4),
-                                 (4, 8), (8, 16)]:
-        d = ind * snp
-        compute = step_ms_1chip / d * (b / b_ref)
-        gam = (n // ind) * k * gamma_wire_bytes
-        lam = 2 * (b // snp) * k * 4 * (iters_eff if ind > 1 else 0)
-        t_gam = 2 * (snp - 1) / snp * gam / (ici_gbps * 1e9) * 1e3
-        t_lam = 2 * (ind - 1) / ind * lam / (ici_gbps * 1e9) * 1e3
-        window = 0.0
-        t_gam_exposed = t_gam
-        if overlap and w_bytes:
-            window = ((b // snp) * (w_bytes // ind)
-                      / (hbm_gbps * 1e9) * 1e3)
-            t_gam_exposed = max(0.0, t_gam - window)
-        comm = t_gam_exposed + t_lam
-        eff = compute / (compute + comm)
-        rows.append(dict(mesh=f"{ind}x{snp}", chips=d, batch=b,
-                         compute_ms=round(compute, 3),
-                         comm_ms=round(comm, 4),
-                         overlap_window_ms=round(window, 4),
-                         efficiency=round(eff, 4)))
-    return rows
-
-
 def main():
-    meas = measured_collective_bytes()
-    out = dict(measured_hlo_collectives=meas)
-    out["overlap_hlo"] = overlap_report()
-    # config 5 target: N=1M, L=1M, K=10, B=4096. Single-chip step time
-    # is a DIRECT round-4 measurement: 57.7 ms/step at N=1,000,448
-    # x L=32,768 B=4096 K=10 on the sharded mesh-1x1 step with the
-    # accel7 default (benchmarks/results/bign_sharded_gap.json; the
-    # step cost is L-independent — per-step work is O(B*N*K)).
-    # iters_eff=8 matches accel7's 7 passes + final stats pass.
-    # w_bytes = packed byte width at n_padded = 1,000,448.
-    kw = dict(step_ms_1chip=57.7, n=1_000_000, k=10, iters_eff=8,
-              w_bytes=250_112)
-    out["projection_config5"] = projected_efficiency(b=4096, **kw)
-    out["projection_config5_overlap"] = projected_efficiency(
-        b=4096, overlap=True, **kw)
-    # Weak-scaling operating points at high chip counts: per-chip batch
-    # share held >= 256 SNPs by growing the global batch with the mesh
-    # (standard at 64+ chips; per-step estimator variance DROPS with B,
-    # the tradeoff is fewer Robbins-Monro updates per epoch).
-    out["projection_config5_overlap_weak_batch"] = (
-        projected_efficiency(b=8192, b_ref=4096, overlap=True,
-                             meshes=[(4, 8), (8, 16)], **kw)
-        + projected_efficiency(b=16384, b_ref=4096, overlap=True,
-                               meshes=[(8, 16)], **kw))
-    # Round 5: bf16 gamma reduction (cfg.gamma_psum_dtype) halves the
-    # N-proportional wire payload — the fixed-B=4096 dependency bound
-    # at high chip counts. Quality A/B: results/gamma_bf16_ab.json.
-    out["projection_config5_overlap_bf16"] = projected_efficiency(
-        b=4096, overlap=True, gamma_wire_bytes=2, **kw)
+    out = dict(measured_hlo_collectives=measured_collective_bytes(),
+               overlap_hlo=overlap_report())
     print(json.dumps(out, indent=1))
 
 

@@ -1,15 +1,13 @@
-"""Quality A/B for the bf16 gamma-statistic reduction (round 5).
+"""Quality A/B for the bf16 gamma-statistic reduction.
 
 The gamma psum('snp') is the one collective whose payload is
-N-proportional and batch-independent — the dependency bound that caps
-fixed-B=4096 scaling at 68.8% on 128 chips even with full
-collective/compute overlap (results/scaling_model.md). Halving its
-wire payload with cfg.gamma_psum_dtype='bf16' lifts that bound, IF the
+N-proportional and batch-independent — the communication term that
+grows with the cohort, not the batch. Halving its wire payload with cfg.gamma_psum_dtype='bf16' lifts that bound, IF the
 ~2^-8-relative rounding of the statistic is quality-neutral under the
 Robbins-Monro average (which already integrates 1/sqrt(B) minibatch
 noise every step).
 
-This harness measures that on the real chip: two full fits at a
+This harness measures that on the card: two full fits at a
 BASELINE config shape, same seed/data/schedule, f32 vs bf16 reduction
 (the engine path rounds the whole statistic at the reduction boundary
 — the single-device mirror of the sharded psum's rounding;
@@ -18,7 +16,7 @@ tests/test_sharded.py::test_gamma_psum_bf16_trajectory_quality).
 
     python benchmarks/gamma_bf16_ab.py [--config 3] [--max-steps N]
 
-One JSON doc to stdout, saved to results/gamma_bf16_ab.json.
+One JSON doc to stdout, saved to chiprun_out/gamma_bf16_ab.json.
 """
 
 from __future__ import annotations
@@ -66,7 +64,7 @@ def main():
     theta_true, _, x = simulate_psd(n, l, k, seed=args.seed)
     # Pooled/capped eval carve (same policy as baseline_configs): at
     # big L an unpooled carve makes every rfreq check re-solve ~every
-    # SNP the eval entries touch (VERDICT r4 #3).
+    # SNP the eval entries touch.
     n_eval = min(max(int(0.005 * n * l), 100), 200_000)
     pool = 2048 if (n >= 50_000 or l >= 131_072) else 0
     data = GenotypeData.from_dense(x, validation_frac=0.005,
@@ -107,9 +105,10 @@ def main():
     )
     doc = json.dumps(out, indent=1)
     print(doc)
-    path = args.out or os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "results",
-        "gamma_bf16_ab.json")
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = args.out or os.path.join(out_dir, "gamma_bf16_ab.json")
     with open(path, "w") as f:
         f.write(doc)
 

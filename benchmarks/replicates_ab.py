@@ -1,4 +1,4 @@
-"""Serial vs batched multi-seed replicates on hardware (VERDICT r4 #8).
+"""Serial vs batched multi-seed replicates on the card.
 
 The reference's recommended workflow fits R seeds and keeps the best
 validation ll (SURVEY.md §1.2 step 6). Serial pays R compiles + R x
@@ -8,7 +8,7 @@ checks the selections agree.
 
     python benchmarks/replicates_ab.py [--config 1] [--r 4]
 
-One JSON document to stdout (+ saved under results/).
+One JSON document to stdout (+ saved under chiprun_out/).
 """
 
 from __future__ import annotations
@@ -51,7 +51,8 @@ def main():
     # Same eval-carve policy as baseline_configs: cap entries by
     # MC-error needs and POOL the unique eval SNPs at big L, or each
     # rfreq check's local-mode lambda re-solve visits ~every SNP the
-    # entries touch (the config-3 sustained-gap lesson, VERDICT r4 #3).
+    # entries touch (an unpooled carve makes each check re-solve more
+    # SNPs than the chunk itself steps on).
     n_eval = min(max(int(0.005 * n * l), 100), 200_000)
     pool = 2048 if (n >= 50_000 or l >= 131_072) else 0
     data = GenotypeData.from_dense(x, validation_frac=0.005,
@@ -101,9 +102,11 @@ def main():
     )
     doc = json.dumps(out, indent=1)
     print(doc)
-    path = args.out or os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "results",
-        f"replicates_ab_c{args.config}.json")
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = args.out or os.path.join(out_dir,
+                                    f"replicates_ab_c{args.config}.json")
     with open(path, "w") as f:
         f.write(doc)
 

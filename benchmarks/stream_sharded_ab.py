@@ -1,12 +1,10 @@
 """A/B: single-device streamer vs mesh-sharded streamer at mesh 1x1.
 
-VERDICT r2 item #3's TPU check: composing streaming with the sharded
-step must not regress per-step cost on one chip. Measures steady-state
-s/step of (a) svi.stream.make_stream_chunk (round-2 single-device path,
-per-iteration Pallas kernels) and (b) parallel.stream's
-make_sharded_stream_chunk on a 1x1 mesh (which may select the fused
-kernel when the shape fits — a streaming upgrade the old path never
-had). Writes benchmarks/results/stream_sharded_ab.json.
+Composing streaming with the sharded step must not regress per-step
+cost on one card. Measures steady-state s/step of (a)
+svi.stream.make_stream_chunk (the single-device path) and (b)
+parallel.stream's make_sharded_stream_chunk on a 1x1 mesh. Writes
+chiprun_out/stream_sharded_ab.json.
 
 Usage: python benchmarks/stream_sharded_ab.py [--n 100352] [--l 16384]
        [--b 512] [--k 10] [--steps 30]
@@ -79,8 +77,10 @@ def main():
           make_sharded_stream_chunk(cfg, plan, mesh, args.steps),
           sharded.init_sharded_state(cfg, plan, mesh))
 
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "results", "stream_sharded_ab.json")
+    out_dir = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "stream_sharded_ab.json")
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps(out))

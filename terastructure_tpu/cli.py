@@ -52,10 +52,6 @@ def _add_svi_args(p):
                    help="disable the Aitken-accelerated local solve "
                         "(SVIConfig.local_accel) — the reference's plain "
                         "fixed-point schedule (16 passes by default)")
-    p.add_argument("--fast", action="store_true",
-                   help="big-N throughput preset: approx-reciprocal "
-                        "stats divides (+25-40%% SNP-updates/s; quality "
-                        "A/B in benchmarks/results/stats_kernel_ab.json)")
     p.add_argument("--rfreq", type=int, default=100,
                    help="validation check every rfreq iterations")
     p.add_argument("--max-steps", type=int, default=20000)
@@ -67,7 +63,10 @@ def _add_svi_args(p):
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"])
     p.add_argument("--kernel", default="auto",
-                   choices=["auto", "fused", "pallas", "dense"])
+                   choices=["auto", "dense", "triton"],
+                   help="per-pass lambda statistic: the fused GPU kernel "
+                        "(triton), plain XLA (dense), or auto (triton on "
+                        "a GPU at float32, else dense)")
     p.add_argument("--init-mode", default="random",
                    choices=["random", "spectral"],
                    help="gamma init: reference-style random, or "
@@ -88,8 +87,7 @@ def _add_svi_args(p):
                    choices=("f32", "bf16"),
                    help="reduction dtype for the gamma statistic's "
                         "psum('snp') — bf16 halves the N-proportional "
-                        "wire payload at high chip counts (quality A/B "
-                        "in benchmarks/results/gamma_bf16_ab.json)")
+                        "wire payload")
     p.add_argument("--force-cpu", action="store_true",
                    help="run on CPU (tests/debug)")
     p.add_argument("--stream", action="store_true",
@@ -108,8 +106,9 @@ def _add_svi_args(p):
 
 def _add_dist_args(p):
     p.add_argument("--distributed", action="store_true",
-                   help="multi-host: jax.distributed.initialize (TPU pods "
-                        "auto-detect; otherwise pass --coordinator)")
+                   help="multi-host: jax.distributed.initialize; on GPU "
+                        "hosts pass --coordinator, --num-processes and "
+                        "--process-id")
     p.add_argument("--coordinator", default=None,
                    help="coordinator address host:port (implies --distributed)")
     p.add_argument("--num-processes", type=int, default=None)
@@ -206,8 +205,8 @@ def _setup_run_dir(cfg, base):
         ],
         force=True,
     )
-    # Orbax/absl emit copious INFO; keep infer.log to our own records.
-    for noisy in ("absl", "orbax", "jax._src", "etils"):
+    # absl/jax emit copious INFO; keep infer.log to our own records.
+    for noisy in ("absl", "jax._src"):
         logging.getLogger(noisy).setLevel(logging.WARNING)
     with open(os.path.join(run_dir, "config.json"), "w") as f:
         f.write(cfg.to_json())
@@ -217,8 +216,7 @@ def _setup_run_dir(cfg, base):
 def _cfg_from_args(args, n, l):
     from terastructure_tpu.config import SVIConfig
 
-    fast = getattr(args, "fast", False)
-    # Accel pairing (ADVICE r4): the accel default applies only at the
+    # Accel pairing: the accel default applies only at the
     # studied accel7 point. An explicit --local-iters runs the plain
     # schedule unless --accel opts the extrapolation back in — so a
     # pre-round-4 `--local-iters 16` invocation still means plain16, not
@@ -242,7 +240,6 @@ def _cfg_from_args(args, n, l):
         tau0=args.tau0, kappa=args.kappa,
         local_iters=iters,
         local_accel=accel,
-        stats_approx_div=fast,
         rfreq=args.rfreq, max_steps=args.max_steps,
         validation_frac=args.validation_frac,
         heldout_frac=args.heldout_frac,
@@ -645,7 +642,7 @@ def _translate_legacy(argv):
         out += ["--seed", str(flags["-seed"])]
     if "-idfile" in flags:
         out += ["--idfile", flags["-idfile"]]
-    # -n/-l are read from .fam/.bim; -nthreads is meaningless on TPU.
+    # -n/-l are read from .fam/.bim; -nthreads has no meaning here.
     return out
 
 
@@ -658,7 +655,7 @@ def main(argv=None):
         argv = legacy
     ap = argparse.ArgumentParser(
         prog="terastructure_tpu",
-        description="TPU-native SVI for the PSD/admixture model",
+        description="Accelerator SVI for the PSD/admixture model",
     )
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -737,6 +734,9 @@ def main(argv=None):
     p.set_defaults(fn=cmd_validate)
 
     args = ap.parse_args(argv)
+    from terastructure_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

@@ -1,4 +1,4 @@
-"""Run configuration — the TPU-native equivalent of the reference's `Env`.
+"""Run configuration — the equivalent of the reference's `Env`.
 
 The reference (src/env.{hh,cc}, per SURVEY.md §2) holds every CLI option as a
 field on an `Env` struct and derives an output directory named
@@ -38,20 +38,16 @@ class SVIConfig:
     kappa: float = 0.5
 
     # Minibatch of SNPs per iteration. The reference subsamples loci
-    # (SURVEY.md §1.2); we batch many per step to feed the MXU.
+    # (SURVEY.md §1.2); we batch many per step to fill the device.
     batch_size: int = 64
 
     # SNP-group sampling granularity: the minibatch is drawn as
     # batch_size/snp_group uniform groups of snp_group consecutive SNPs.
     # Group draws keep the gamma natural-gradient estimate unbiased
     # (every SNP equally likely; scale L/B unchanged) while turning the
-    # per-step HBM gathers/scatters into few large contiguous reads —
-    # per-row gathers are latency-bound on TPU (~0.6 us/row). Set 1
+    # per-step gathers/scatters into few large contiguous reads. Set 1
     # (default) for fully independent draws (reference behavior); groups
     # only engage at biobank L (engine falls back to 1 when L <= 65536).
-    # Measured on 1 v5e chip the grouped gather did NOT win (the lambda
-    # scatter-through-reshape copies dominate) — kept as an option for
-    # multi-host runs where gather latency compounds.
     snp_group: int = 1
 
     # Local coordinate-ascent (phi <-> lambda) iterations per minibatch.
@@ -65,93 +61,31 @@ class SVIConfig:
     # Aitken-accelerated local solve: apply one per-coordinate Aitken
     # delta^2 extrapolation at the LAST coordinate-ascent iteration
     # (ops/stats_dense.aitken_final). The plain fixed point contracts
-    # slowly (~5e-2 relative lambda error left after 16 passes at
-    # TGP-like shapes); 6 passes + one extrapolation land ~7x closer
-    # for ~2.6x fewer sweeps (study: benchmarks/results/
-    # local_accel_ab.json). DEFAULT ON since round 4: with the
-    # ratio-clamped safeguard (aitken_final rmax) the measured
-    # end-to-end quality at the TGP config matches plain16 within MC
-    # error (heldout delta 4e-5 nats, theta MAE 0.00929 vs 0.0099) at
-    # +77% sustained throughput (565.9K vs 319.8K SNP-updates/s/chip,
-    # 1x v5e — benchmarks/results/local_accel_ab.json
-    # "tpu_end_to_end").
+    # slowly; 5 passes + two tail passes + one clamped extrapolation
+    # replace the reference's 16 plain passes at equal end-to-end
+    # quality (heldout and theta MAE within Monte-Carlo error at the
+    # TGP shape).
     local_accel: bool = True
 
     # Big-N inner-loop subsampling: run the lambda coordinate-ascent
     # ITERATIONS on a per-step random subsample of this many individuals
     # (N/Ns-scaled statistics), then take ONE exact full-N pass for the
-    # final lambda + gamma statistics. The K<=32 MXU lane padding makes
-    # every full sweep cost ~128/K more than its useful FLOPs, and the
-    # solve runs ~16 sweeps — subsampling cuts that to ~1 full-sweep
-    # equivalent with per-step lambda noise ~1/sqrt(Ns) that the exact
-    # final pass reduces to one coordinate-ascent step's worth. 0
-    # disables; active only when padded N >= 4x this value.
+    # final lambda + gamma statistics. The solve runs ~8 passes;
+    # subsampling cuts that to ~1 full-pass equivalent with per-step
+    # lambda noise ~1/sqrt(Ns) that the exact final pass reduces to one
+    # coordinate-ascent step's worth. 0 disables; active only when
+    # padded N >= 4x this value (ops/local_step.sub_columns).
     local_sub_n: int = 8192
 
     # With local_sub_n active: run one exact full-N refinement sweep
     # between the subsampled solve and the final stats pass. The stats
     # pass is itself a full-N lambda iteration (new lambda = prior +
     # exact stats), so the extra sweep only contracts the subsample
-    # perturbation in the t-factors the GAMMA statistic sees. Measured
-    # (1x v5e, benchmarks/results/refine_ab.json): switching it OFF is
-    # +28% step throughput at 100Kx100K K=10 (14.8 vs 18.9 ms/step) with
-    # heldout-ll delta 7e-5 nats and theta-MAE delta 5e-4 at 32Kx10K —
-    # within run noise, matching the eval scorer's lambda re-solve
-    # (svi/postprocess.solve_lambda_blocks), which never refined.
+    # perturbation in the t-factors the GAMMA statistic sees. Off by
+    # default: its quality effect was within run noise, and the eval
+    # scorer's lambda re-solve (svi/postprocess.solve_lambda_blocks)
+    # never refines.
     local_refine_full: bool = False
-
-    # With local_sub_n active: decode the subsample's allele counts ONCE
-    # per step into (B, 4, W_sub) bf16 planes (exact — counts are
-    # {0,1,2}) and iterate lambda_stats_acat over them, instead of
-    # re-running the 2-bit unpack chain (shift/mask/compare/cast/select,
-    # the VPU-bound share of the iteration) every coordinate-ascent
-    # pass. Costs one extra HBM round-trip of 2*B*4W_sub bf16 per step,
-    # repaid local_iters times. Pallas path only.
-    sub_decode_once: bool = True
-
-    # With local_sub_n active: compute the phi-ratio divides of the
-    # SUBSAMPLED solve iterations with the VPU's fast reciprocal
-    # approximation (~2^-12 relative error) instead of exact division.
-    # The subsampled lambda already carries ~1/sqrt(sub_n) statistical
-    # noise, so the approximation is far below the noise floor; the
-    # exact full-N passes (refinement, final stats) always use the true
-    # divide. Only affects the Pallas path.
-    local_sub_approx_div: bool = True
-
-    # Which Pallas kernel computes the exact full-N stats pass of the
-    # per-iteration path (engine.step_core_packed):
-    #   "pair"     — two kernels (lambda-stats + gamma-stats), each with
-    #                its own unpack and D = T.U^T dot;
-    #   "fused"    — one kernel, lambda accumulated by dynamic-slice
-    #                read-modify-write (v1; measured slower than pair);
-    #   "fused_v2" — one kernel, lambda emitted as per-w-tile partials
-    #                (no revisits) reduced outside; shares one unpack and
-    #                one D-dot per tile between lambda and gamma.
-    stats_kernel: str = "fused_v2"
-
-    # Compute the exact stats pass's phi-ratio divides with the VPU fast
-    # reciprocal too (stats_kernel="fused_v2" only). Unlike
-    # local_sub_approx_div this perturbs the FINAL lambda/gamma
-    # statistics (~2^-12 relative), not just the inner iterations — keep
-    # it off unless the quality A/B at your config shows the delta is
-    # below MC error (benchmarks/results/bigN_quality_ab.json).
-    stats_approx_div: bool = False
-
-    # Gather minibatch rows with the Pallas DMA block-gather kernel
-    # (ops/gather.py: concurrent HBM->HBM copies of 8-row-aligned
-    # blocks) instead of XLA's latency-bound row gather (~1 us/row on
-    # v5e). Implies the minibatch is drawn as batch_size/8 uniform
-    # blocks of 8 consecutive SNPs — unbiased for the gamma estimate,
-    # same argument as snp_group (single-row HBM DMAs are illegal under
-    # Mosaic int8 tiling). Engages on TPU at L >= dma_gather_min_l when
-    # L % 8 == 0 and batch_size % 128 == 0; elsewhere packed[idx].
-    dma_gather: bool = True
-    # Smallest L the DMA block-gather engages at. The default keeps the
-    # historical "biobank L only" heuristic (independent per-SNP draws
-    # at small L); lower it when N is huge but L modest — e.g. a
-    # resident N=1M x L=32K fit, where the 1 GB/step row gather is the
-    # point of the kernel regardless of L.
-    dma_gather_min_l: int = 65537
 
     # Heldout/validation entry fractions (SURVEY.md §1.2 step 5).
     validation_frac: float = 0.005
@@ -170,22 +104,21 @@ class SVIConfig:
     conv_tol: float = 1e-5      # relative validation-ll improvement floor
     conv_patience: int = 3      # consecutive non-improving checks to stop
 
-    # Numerics: dtype for the hot matmuls. f32 matches reference doubles
-    # closely; bf16 runs the MXU at full rate with stochastic robustness.
+    # Numerics: dtype for the hot matmuls' operands (float32 or
+    # bfloat16); accumulation is always float32.
     compute_dtype: str = "float32"
 
-    # Hot-loop implementation: "dense" (jnp matmuls, materializes (B, N)
-    # intermediates), "pallas" (per-iteration fused kernels,
-    # ops/stats_pallas.py), "fused" (one kernel per step with in-kernel
-    # row DMA, ops/fused_step.py), or "auto" (fused on TPU when the
-    # shape fits its VMEM budget, else pallas on TPU, dense elsewhere).
+    # Per-pass lambda statistic of the local solve: "dense" (jnp
+    # matmuls over (B, N) allele counts), "triton" (the fused GPU
+    # kernel of ops/lambda_pass.py, float32 and K <= 16 only), or
+    # "auto" (triton on a GPU where it can run, dense elsewhere). Chosen
+    # in one place, ops/lambda_pass.resolve_kernel.
     kernel: str = "auto"
 
-    # Lambda handling. "local" (default, TPU-native): lambda is treated
-    # as the local variable it is (SURVEY.md §1.2) — each minibatch's
+    # Lambda handling. "local" (default): lambda is treated as the
+    # local variable it is (SURVEY.md §1.2) — each minibatch's
     # coordinate ascent cold-starts from the Beta prior, nothing is
-    # gathered/scattered from the (L, K, 2) array during stepping (that
-    # HBM traffic is latency-bound, ~1.4 ms/step at L=1M), and
+    # gathered/scattered from the (L, K, 2) array during stepping, and
     # validation/export lambdas are recomputed from the current gamma on
     # demand (always-converged — slightly better-calibrated heldout
     # scores). "stored": reference-style — warm-start from and scatter
@@ -210,23 +143,21 @@ class SVIConfig:
     # Software-pipeline the sharded chunk runner: issue step t+1's
     # minibatch gather between step t's gamma all-reduce and the gamma
     # update that consumes it, so the (N/I, K) collective — the
-    # dominant communication term at high chip counts — can run
-    # asynchronously under XLA's latency-hiding scheduler. EXACT: only
+    # collective whose size grows with N — can run asynchronously under
+    # XLA's latency-hiding scheduler. EXACT: only
     # instruction order changes (pipelined == per-step bitwise,
     # tests/test_sharded.py). Off = per-step shard_map loop.
     comm_overlap: bool = True
 
     # Reduction dtype for the gamma natural-gradient statistic's
     # psum('snp') — the one collective whose payload is proportional to
-    # N and independent of B, i.e. the dependency bound at high chip
-    # counts under fixed batch (benchmarks/results/scaling_model.md).
-    # "bf16" halves the wire payload (partials are rounded to bf16 and
-    # the ring accumulates in bf16); the engine path rounds the whole
-    # statistic once so single-device fits share the semantics. The
-    # rounding (~2^-8 relative) sits far below the 1/sqrt(B) minibatch
-    # noise the Robbins-Monro update already averages over — measured
-    # quality A/B in benchmarks/results/gamma_bf16_ab.json. Default
-    # stays exact f32: the 8-chip acceptance row clears without it.
+    # N and independent of B. "bf16" halves the wire payload (partials
+    # are rounded to bf16 and the reduction accumulates in bf16); the
+    # engine path rounds the whole statistic once so single-device fits
+    # share the semantics. The rounding (~2^-8 relative) sits far below
+    # the 1/sqrt(B) minibatch noise the Robbins-Monro update already
+    # averages over (tests/test_sharded.py quality test). Default stays
+    # exact f32.
     gamma_psum_dtype: str = "f32"
 
     def __post_init__(self):

@@ -85,7 +85,7 @@ def run_chees(
     numpy, diagnostics). inv_mass0: optional diagonal preconditioner
     (no chain axis), e.g. potential.svi_informed_inits' q-variances.
 
-    Two levers against the slow-coordinate R-hat tail (VERDICT r2 #9):
+    Two levers against the slow-coordinate R-hat tail:
     mass_floor_frac floors the warmup-estimated variance at that
     fraction of inv_mass0 — coordinates that barely moved during warmup
     otherwise get a tiny mass entry, shrinking their effective step and
@@ -301,8 +301,7 @@ def run_chees(
     # posterior variance, so inv_mass0 is a sound lower bound) only
     # holds when a real inv_mass0 was supplied; against the identity
     # placeholder the floor would disable mass adaptation for every
-    # coordinate with posterior variance < mass_floor_frac (ADVICE r3
-    # #2).
+    # coordinate with posterior variance < mass_floor_frac.
     floor = mass_floor_frac * inv_mass if inv_mass0 is not None else 0.0
     c[12] = jnp.maximum(
         jnp.maximum(w_sh * var + (1.0 - w_sh) * inv_mass, floor),
@@ -316,7 +315,7 @@ def run_chees(
     c[5] = c[5] + jnp.log(jnp.asarray(float(sample_traj_mult)))
     # The per-chunk leapfrog bucket caps at max_leapfrog, so a
     # multiplied trajectory beyond eps*max_leapfrog would silently
-    # truncate (ADVICE r3 #3) — clamp on host and surface it in the
+    # truncate — clamp on host and surface it in the
     # diagnostics instead.
     eps_s = float(np.exp(c[4].log_eps))
     traj_req = float(np.exp(c[5]))

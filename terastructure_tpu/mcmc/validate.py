@@ -231,7 +231,7 @@ def _mcmc_moments(x, k, *, alpha, sampler, seed, n_samples, n_warmup,
             # diagnostics: the PSD posterior is invariant to permuting
             # the K populations, and chains that settled on different
             # labelings are not "unmixed" — un-aligned R-hat conflates
-            # the two (VERDICT r1). The permutation comes from the
+            # the two. The permutation comes from the
             # chain-mean theta (Hungarian on column L1 distance) and is
             # applied to theta AND beta (same component axis).
             perms = []

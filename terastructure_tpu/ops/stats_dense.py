@@ -1,6 +1,6 @@
-"""Dense (jnp) sufficient-statistic kernels for PSD SVI — the MXU path.
+"""Dense (jnp) sufficient statistics for PSD SVI — the plain reference.
 
-This is the TPU-first re-derivation of the reference hot loop
+This is the matrix-product re-derivation of the reference hot loop
 (`SNPSamplingE::update_phi{mom,dad}` / `update_lambda` / `update_gamma`,
 src/snpsamplinge.cc per SURVEY.md §3.1). The reference loops over
 individuals per SNP with pthreads; here the whole phi/lambda/gamma update
@@ -9,7 +9,7 @@ on the genotype value and on exp-expected-log factors:
 
   u_ik  = exp E[log theta_ik]            (N, K)
   t1_jk = exp E[log beta_kj]             (B, K)   t0 likewise for 1-beta
-  phi1_ijk = u_ik t1_jk / D1_ij,   D1 = T1 @ U^T  (B, N)   <- MXU
+  phi1_ijk = u_ik t1_jk / D1_ij,   D1 = T1 @ U^T  (B, N)
   phi0_ijk = u_ik t0_jk / D0_ij,   D0 = T0 @ U^T
 
 With allele-count matrices A1 = mask*x, A0 = mask*(2-x) (B, N) and
@@ -18,9 +18,9 @@ R1 = A1/D1, R0 = A0/D0:
   lambda-stats:  L0_jk = t1_jk * (R1 @ U)_jk,  L1_jk = t0_jk * (R0 @ U)_jk
   gamma-stats:   S_ik  = u_ik * (R1^T @ T1 + R0^T @ T0)_ik
 
-i.e. 6 matmuls of shape (B,N)x(N,K) per local iteration — all MXU work.
-A fused Pallas kernel (ops/stats_pallas.py) additionally unpacks the 2-bit
-genotypes in-kernel and never materializes the (B, N) intermediates in HBM.
+i.e. 6 matmuls of shape (B,N)x(N,K) per local iteration. The GPU kernel
+of ops/lambda_pass.py computes the lambda statistic of one pass from
+the packed rows without materialising the (B, N) intermediates.
 """
 
 from __future__ import annotations
@@ -82,7 +82,7 @@ def lambda_stats(a1, a0, u, t1, t0, dtype=jnp.float32, ind_reduce=_identity):
 
     `ind_reduce` is applied to the (B, K) individual-summed matmul results;
     under sharding it is a psum over the 'ind' mesh axis (the reference's
-    pthread partial-sum join, but as an ICI/DCN collective).
+    pthread partial-sum join, as a collective across devices).
     """
     r1, r0 = _ratios(a1, a0, u, t1, t0, dtype)
     ud = u.astype(dtype)
@@ -113,8 +113,7 @@ def aitken_final(prev, cur, new, floor=1e-3, rmax=0.9):
     """One per-coordinate Aitken Δ² extrapolation of the λ fixed point.
 
     The coordinate ascent λ ← F(λ) contracts slowly along a few modes
-    (measured: plain 16 passes leave ~5e-2 relative error at TGP-like
-    shapes; numpy study in benchmarks/results/local_accel_ab.json).
+    (plain 16 passes leave ~5e-2 relative error at TGP-like shapes).
     Given three consecutive iterates λ_{n-1}, λ_n, λ_{n+1}, the geometric
     limit estimate is λ_{n+1} + d1²/(d0 - d1) with d1 = λ_{n+1} - λ_n,
     d0 = λ_n - λ_{n-1} — applied ONCE at the last iteration ("final-only"
@@ -123,11 +122,10 @@ def aitken_final(prev, cur, new, floor=1e-3, rmax=0.9):
 
     rmax clamps the implied contraction ratio r = d1/d0: the raw step
     d1·r/(1−r) blows up as r→1, and under SVI's per-step minibatch
-    noise (f32, cold start) a few coordinates DO land there — measured
-    end-to-end, the unguarded extrapolation stalls the fit at visibly
-    worse heldout (θ MAE 0.0182 vs plain16's 0.0097 at N=1K×L=20K K=8;
-    the clamp restores 0.0099–0.0107 across rmax∈{0.8,0.9}, within MC
-    error — benchmarks/results/local_accel_ab.json "tpu_end_to_end").
+    noise (f32, cold start) a few coordinates DO land there — unguarded,
+    the extrapolation stalls the fit at visibly worse heldout (θ MAE
+    about twice plain16's at N=1K×L=20K K=8); the clamp restores it to
+    within Monte-Carlo error.
     The clamp bounds the step to rmax/(1−rmax)·|d1| (9×|d1| at 0.9).
     """
     d1 = new - cur
@@ -142,7 +140,8 @@ def aitken_final(prev, cur, new, floor=1e-3, rmax=0.9):
 
 def solve_schedule(iterate, lamb0, *, local_iters, local_tol, accel):
     """Unified local-solve schedule, shared by EVERY coordinate-ascent
-    path (dense XLA, per-iteration Pallas, sharded, compute-lambda).
+    path (dense and kernel passes, sharded, compute-lambda —
+    ops/local_step.py).
 
     plain: tol-gated lax.while_loop, up to `local_iters` passes, early
     exit on mean relative lambda change < local_tol.
@@ -150,13 +149,10 @@ def solve_schedule(iterate, lamb0, *, local_iters, local_tol, accel):
     accel (needs local_iters >= 3, else falls back to plain): tol-gated
     while_loop capped at local_iters-2 passes, then ALWAYS two unrolled
     tail passes + one clamped Aitken extrapolation (`aitken_final`).
-    This is the exact schedule the fused one-kernel path hard-codes
-    (ops/fused_step.py: Mosaic cannot carry the extrapolation's iterate
-    history through the while-loop, so the tail is unrolled there) —
-    keeping every other path on the same schedule means a tol-triggered
-    early exit can never make kernel choice change the numerics
-    (VERDICT r4 weak #3): whenever tol fires, all paths still run the
-    two tail passes and extrapolate from the same three iterates.
+    Keeping every path on the same schedule means a tol-triggered early
+    exit can never make the kernel choice change the numerics: whenever
+    tol fires, all paths still run the two tail passes and extrapolate
+    from the same three iterates.
 
     `iterate(lam) -> new_lam` is one coordinate-ascent pass (B, K, 2) ->
     (B, K, 2); the carry stays O(B*K) — ratio matrices are recomputed

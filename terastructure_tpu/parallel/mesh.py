@@ -1,15 +1,18 @@
 """Device mesh construction for the 2-D individuals x SNPs layout.
 
 The reference's only parallelism is pthreads over individual chunks on one
-node (SURVEY.md §2, "Threading"). The TPU-native design (BASELINE.json
+node (SURVEY.md §2, "Threading"). The accelerator design (BASELINE.json
 north star) shards:
 
-  - gamma and the exp-Elog-theta factor over the 'ind' axis (hosts/DCN),
-  - lambda and the packed genotype matrix over the 'snp' axis (chips/ICI),
+  - gamma and the exp-Elog-theta factor over the 'ind' axis (hosts),
+  - lambda and the packed genotype matrix over the 'snp' axis (the cards
+    of one host, joined all to all by NVLink),
 
 so that per-minibatch lambda statistics reduce over 'ind' and the gamma
-natural-gradient statistics reduce over 'snp' — both as psum collectives
-that ride ICI when 'snp' is the minor (intra-slice) axis.
+natural-gradient statistics reduce over 'snp' — both as psum
+collectives. The mesh only reshapes the device list: every card of a
+host reaches every other at the same rate, so the layout follows the
+algorithm alone.
 
 Multi-host entry: call jax.distributed.initialize() before make_mesh();
 jax.devices() then spans all hosts and the same code paths apply.

@@ -5,7 +5,7 @@ The reference is single-process and loads the whole N x L matrix in RAM
 same SPMD program on every host. Individuals shard across hosts (gamma
 rows live on the host that owns them — local natural-gradient updates
 need no cross-host traffic beyond the small (B, K) lambda-stat psums),
-SNPs across the chips within each host (ICI).
+SNPs across the cards within each host (NVLink).
 
 Data plumbing (the part that makes 1M x 1M = 250 GB packed actually
 runnable): each host reads ONLY its individuals' byte columns of the
@@ -19,7 +19,7 @@ the full matrix.
 Usage (same on every host):
 
     from terastructure_tpu.parallel import multihost
-    multihost.initialize()          # env-driven (TPU pods auto-detect)
+    multihost.initialize("host0:1234", num_processes=2, process_id=i)
     mesh = meshlib.make_mesh(meshlib.choose_mesh_shape(
         len(jax.devices()), ind=multihost.process_count()))
     data = multihost.load_bed_shard(path, cfg, mesh)
@@ -39,7 +39,10 @@ from terastructure_tpu.parallel import mesh as meshlib
 
 def initialize(coordinator_address=None, num_processes=None, process_id=None,
                local_device_ids=None):
-    """jax.distributed.initialize with TPU-pod auto-detection defaults."""
+    """jax.distributed.initialize. GPU hosts have no cluster
+    auto-detection: pass the coordinator address (host:port), the number
+    of processes and this process's id (the CLI's --coordinator,
+    --num-processes and --process-id)."""
     kw = {}
     if coordinator_address is not None:
         kw.update(

@@ -35,8 +35,9 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from terastructure_tpu.config import SVIConfig
 from terastructure_tpu.data.dataset import GenotypeData
 from terastructure_tpu.data.pack import packed_width
-from terastructure_tpu.models.psd import MISSING
+from terastructure_tpu.ops import local_step
 from terastructure_tpu.ops import stats_dense as ops
+from terastructure_tpu.ops.lambda_pass import resolve_kernel
 from terastructure_tpu.parallel import mesh as meshlib
 from terastructure_tpu.parallel.mesh import IND_AXIS, SNP_AXIS
 from terastructure_tpu.svi.engine import SVIState
@@ -58,14 +59,9 @@ def make_plan(cfg: SVIConfig, mesh: Mesh) -> ShardPlan:
     snp = mesh.shape[SNP_AXIS]
     if cfg.batch_size % snp:
         raise ValueError(f"batch_size {cfg.batch_size} not divisible by snp axis {snp}")
-    # When a Pallas kernel path is reachable, pad N so each shard's byte
-    # width is a multiple of 128 — the lane tile every Pallas kernel
-    # requires. Padding individuals decode as MISSING (harmless);
-    # elsewhere (dense XLA path, e.g. CPU tests) keep the minimal 4*ind
-    # byte-alignment quantum.
-    pallas_reachable = cfg.kernel in ("fused", "pallas") or (
-        cfg.kernel == "auto" and jax.default_backend() == "tpu")
-    quantum = 512 * ind if pallas_reachable else 4 * ind
+    # Byte-aligned individual shards; padding individuals decode as
+    # MISSING and never contribute statistics.
+    quantum = 4 * ind
     n_padded = ((cfg.n + quantum - 1) // quantum) * quantum
     l_padded = ((cfg.l + snp - 1) // snp) * snp
     return ShardPlan(
@@ -138,15 +134,18 @@ def init_sharded_state(cfg: SVIConfig, plan: ShardPlan, mesh: Mesh) -> SVIState:
     Init is computed UNDER jit with sharded out_shardings so it works
     identically in multi-process runs (no host materializes the global
     arrays; threefry values are sharding-independent, so this matches
-    the single-process init bit-for-bit).
+    the single-process init bit-for-bit). The step counter and key come
+    back replicated over the mesh, as the chunk runner returns them, so
+    the runner's second call reuses the first call's program.
     """
     key = jax.random.PRNGKey(cfg.seed)
     k_init, k_run = jax.random.split(key)
     gsh = NamedSharding(mesh, meshlib.GAMMA_SPEC)
     lsh = NamedSharding(mesh, meshlib.LAMB_SPEC)
+    rep = NamedSharding(mesh, meshlib.REPLICATED)
 
-    @functools.partial(jax.jit, out_shardings=(gsh, lsh))
-    def _init(k):
+    @functools.partial(jax.jit, out_shardings=(gsh, lsh, rep, rep))
+    def _init(k, k_run):
         gamma = (
             cfg.alpha_value
             + cfg.gamma_init_scale
@@ -160,230 +159,49 @@ def init_sharded_state(cfg: SVIConfig, plan: ShardPlan, mesh: Mesh) -> SVIState:
             ],
             axis=-1,
         )
-        return gamma, lamb
+        return gamma, lamb, jnp.int32(0), k_run
 
-    gamma, lamb = _init(k_init)
-    return SVIState(gamma=gamma, lamb=lamb, t=jnp.int32(0), key=k_run)
-
-
-def _unpack_local(rows, n_local):
-    shifts = jnp.arange(4, dtype=jnp.uint8) * 2
-    g = (rows[..., None] >> shifts) & jnp.uint8(0x3)
-    return g.reshape(rows.shape[0], n_local).astype(jnp.int8)
+    gamma, lamb, t, key = _init(k_init, k_run)
+    return SVIState(gamma=gamma, lamb=lamb, t=t, key=key)
 
 
-class KernelPlan(NamedTuple):
-    """Static kernel/sampling selection for a sharded step — shared by
-    the resident device step AND the host-side streaming sampler, which
-    must replicate the resident sampling branch exactly for the
-    streaming == resident bitwise guarantee."""
-    interpret: bool
-    want_fused: bool
-    use_pk: bool
-    pk_tiles: object        # (tb, tw) or None
-    dma_blocks: bool        # True -> minibatch drawn as b/8 8-row blocks
-    wl: int                 # per-shard byte width
+def _replicated(x, mesh: Mesh):
+    """Host value -> array replicated over the mesh (multi-process safe)."""
+    x = np.asarray(x)
+    return jax.make_array_from_callback(
+        x.shape, NamedSharding(mesh, meshlib.REPLICATED), lambda idx: x[idx])
 
 
-def plan_kernels(cfg: SVIConfig, plan: ShardPlan,
-                 backend: str | None = None) -> KernelPlan:
-    """Static kernel/sampling plan. `backend` overrides the detected
-    jax backend — used to RECORD the plan a TPU run would take from a
-    CPU host (benchmarks/config5_literal_smoke.py); execution always
-    uses the real backend (pass None)."""
-    from terastructure_tpu.ops import stats_pallas as _pk
-
-    bk = backend or jax.default_backend()
-    interpret = bk != "tpu"
-    if cfg.kernel == "fused" and plan.ind > 1:
-        raise ValueError(
-            "kernel='fused' runs the whole local coordinate ascent inside "
-            "one Pallas program and cannot psum over a sharded 'ind' axis; "
-            f"this mesh has ind={plan.ind}. Keep 'ind' for HOSTS (one chip "
-            "column per host) and shard chips over 'snp', or use "
-            "kernel='auto'/'pallas'/'dense' which psum per iteration.")
-    # fused applies when 'ind' is unsharded: explicit kernel='fused'
-    # anywhere (interpret-mode Pallas off-TPU — exercised by tests and
-    # dryrun_multichip), 'auto' on real TPUs only.
-    want_fused = plan.ind == 1 and (
-        cfg.kernel == "fused"
-        or (cfg.kernel == "auto" and bk == "tpu")
-    )
-    wl = packed_width(plan.n_padded) // plan.ind
-    b_local = plan.batch_per_shard
-    l_local = plan.l_padded // plan.snp
-    if want_fused and cfg.kernel == "auto":
-        # 'auto' must resolve the fused kernel's shape support HERE, not
-        # at trace time: deciding dma_blocks below as if fused would run
-        # (it forces dma_blocks off) while the step then falls back to
-        # the per-iteration path left big-N resident runs on the
-        # latency-bound XLA row gather (VERDICT r3 weak #4).
-        from terastructure_tpu.ops import fused_step
-
-        kdt = (jnp.bfloat16 if cfg.compute_dtype == "bfloat16"
-               else jnp.float32)
-        want_fused = fused_step.supports(b_local, wl, cfg.k, kdt,
-                                         accel=cfg.local_accel)
-    try:
-        pk_tiles = _pk.pick_tiles(b_local, wl)
-    except ValueError:
-        pk_tiles = None
-    use_pk = pk_tiles is not None and (
-        cfg.kernel == "pallas"
-        or (cfg.kernel in ("auto", "fused")
-            and bk == "tpu")
-    )
-    # (interpret-mode runs — CPU tests/dryrun with kernel='pallas' —
-    # exercise the same branch through gather_row_blocks' interpret path)
-    dma_blocks = bool(
-        cfg.dma_gather and use_pk and not want_fused
-        and l_local >= cfg.dma_gather_min_l
-        and l_local % 8 == 0 and b_local % 128 == 0)
-    return KernelPlan(interpret=interpret, want_fused=want_fused,
-                      use_pk=use_pk, pk_tiles=pk_tiles,
-                      dma_blocks=dma_blocks, wl=wl)
-
-
-def _build_step_parts(cfg: SVIConfig, plan: ShardPlan, mesh: Mesh):
+def _build_step_parts(cfg: SVIConfig, plan: ShardPlan, mesh: Mesh, *,
+                      interpret: bool = False):
     """Build the per-shard closures every sharded runner composes:
     (sample_gather, stats_from_rows, apply_gamma, psum_gamma).
 
-    Kernel selection per shard: when the 'ind' axis is unsharded
-    (ind == 1, the single-host case — individuals shard across *hosts*)
-    the lambda statistics need no cross-shard reduction, so the fused
-    one-kernel-per-step path (ops/fused_step.py) applies whole; with
-    ind > 1 each coordinate-ascent iteration psums over 'ind' and the
-    per-iteration dense path runs. lambda_mode='local' skips the stored
-    lambda gather/scatter entirely (cold start from the prior).
+    The local solve is ops/local_step's, on the kernel that
+    ops/lambda_pass.resolve_kernel picks; every lambda statistic is
+    psum'ed over 'ind' inside each pass (the sum over individuals spans
+    the 'ind' shards), so the coordinate ascent stays in lockstep across
+    'ind'. The big-N iteration subsample applies per 'ind' shard, each
+    shard drawing its share of the byte columns; the W/sub_cols scale is
+    shard-independent. lambda_mode='local' skips the stored lambda
+    gather/scatter entirely (cold start from the prior).
 
     The gamma psum over 'snp' is deliberately NOT fused into
     stats_from_rows: callers place psum_gamma between stats_from_rows
     and apply_gamma, which is what lets make_sharded_run_chunk overlap
     the collective with the next step's gather. psum_gamma reduces in
     cfg.gamma_psum_dtype — "bf16" rounds each shard's partial and rides
-    the ring at half the f32 wire payload (the N-proportional,
-    B-independent term that dependency-bounds fixed-batch scaling at
-    high chip counts, benchmarks/results/scaling_model.md), then casts
-    back to f32 for the Robbins-Monro update.
+    the wire at half the f32 payload, then casts back to f32 for the
+    Robbins-Monro update.
     """
-    from terastructure_tpu.ops import fused_step
-    from terastructure_tpu.ops import stats_pallas as pk
-
-    kp = plan_kernels(cfg, plan)
+    kernel = resolve_kernel(cfg.kernel, cfg.compute_dtype, cfg.k,
+                            interpret=interpret)
     b_local = plan.batch_per_shard
     l_local = plan.l_padded // plan.snp
-    wl_static = kp.wl
-    interpret, want_fused, use_pk, pk_tiles = (
-        kp.interpret, kp.want_fused, kp.use_pk, kp.pk_tiles)
-    dtype = jnp.dtype(cfg.compute_dtype)
+    wl = packed_width(plan.n_padded) // plan.ind
+    sub_cols = local_step.sub_columns(cfg, wl, plan.ind)
     psum_ind = functools.partial(jax.lax.psum, axis_name=IND_AXIS)
     local_mode = cfg.lambda_mode == "local"
-    kdtype = (jnp.bfloat16 if cfg.compute_dtype == "bfloat16"
-              else jnp.float32)
-
-    def _local_step_pk(gamma_l, lamb_l, rows, t, kb, idx):
-        from terastructure_tpu.ops import stats_pallas as pk
-
-        tb, tw = pk_tiles
-        u = ops.exp_elog_theta(gamma_l)                 # (4*W/I, K)
-        u_planes = pk.u_to_planes(u)
-
-        # Optional iteration subsample: each ind shard takes its share
-        # of the byte columns; the N/Ns scale is shard-independent.
-        sub_w = ((cfg.local_sub_n // 4 // max(plan.ind, 1)) // 128) * 128
-        use_sub = sub_w >= 128 and wl_static >= 4 * sub_w
-        if use_sub:
-            i_idx = jax.lax.axis_index(IND_AXIS)
-            ks = jax.random.fold_in(jax.random.fold_in(kb, i_idx), 0x5B)
-            idx_w = jax.random.choice(ks, wl_static, (sub_w,),
-                                      replace=False)
-            rows_it = rows[:, idx_w]
-            u_it = pk.u_to_planes(
-                u.reshape(wl_static, 4, -1)[idx_w].reshape(4 * sub_w, -1))
-            _, tw_it = pk.pick_tiles(b_local, sub_w)
-            scale = wl_static / sub_w
-        else:
-            rows_it, u_it, tw_it, scale = rows, u_planes, tw, 1.0
-
-        lamb_b = (jnp.stack(
-            [jnp.full((b_local, cfg.k), cfg.beta_a, jnp.float32),
-             jnp.full((b_local, cfg.k), cfg.beta_b, jnp.float32)],
-            axis=-1)
-            if local_mode else lamb_l[idx])
-
-        def one_iter(lam, rows_x, u_x, tw_x, st_scale):
-            t1, t0 = ops.exp_elog_beta(lam)
-            l0r, l1r = pk.lambda_stats_packed(
-                rows_x, u_x, t1, t0, tb=tb, tw=tw_x, dtype=kdtype,
-                interpret=interpret)
-            l0r = psum_ind(l0r)
-            l1r = psum_ind(l1r)
-            return jnp.stack([cfg.beta_a + st_scale * t1 * l0r,
-                              cfg.beta_b + st_scale * t0 * l1r], axis=-1)
-
-        # Decode-once iteration path (cfg.sub_decode_once): the
-        # subsample's count planes are decoded one time per step and the
-        # iterations skip the per-pass 2-bit unpack (VERDICT r2 #8).
-        if use_sub and cfg.sub_decode_once:
-            a1s, a0s = pk.decode_count_planes(rows_it)
-
-            def iter_sub(lam):
-                t1, t0 = ops.exp_elog_beta(lam)
-                l0r, l1r = pk.lambda_stats_acat(
-                    a1s, a0s, u_it, t1, t0, tb=tb, tw=tw_it,
-                    dtype=kdtype, interpret=interpret,
-                    approx_div=cfg.local_sub_approx_div)
-                l0r = psum_ind(l0r)
-                l1r = psum_ind(l1r)
-                return jnp.stack([cfg.beta_a + scale * t1 * l0r,
-                                  cfg.beta_b + scale * t0 * l1r], axis=-1)
-        else:
-            def iter_sub(lam):
-                return one_iter(lam, rows_it, u_it, tw_it, scale)
-
-        # Unified tol/accel schedule (stats_dense.solve_schedule) — the
-        # psum'ed stats make iterates identical across 'ind' shards, so
-        # the loop exit and Aitken tail stay in lockstep.
-        lamb_b = ops.solve_schedule(
-            iter_sub, lamb_b, local_iters=cfg.local_iters,
-            local_tol=cfg.local_tol, accel=cfg.local_accel)
-        if use_sub and cfg.local_refine_full:
-            # Optional exact full-N refinement before the final stats.
-            # Must honor cfg.local_refine_full exactly like the engine
-            # (engine.step_core_packed): running it unconditionally was
-            # one extra FULL-N sweep per step — the bulk of the 41%
-            # sharded-vs-engine gap at N=1M resident (VERDICT r3 weak
-            # #4; the final stats pass is itself a full-N iteration).
-            lamb_b = one_iter(lamb_b, rows, u_planes, tw, 1.0)
-
-        # Final exact stats from the converged t's. The t-factors are
-        # replicated across 'ind' shards (the solve is lockstep), so
-        # psum(t * l_raw) == t * psum(l_raw) and both kernel layouts
-        # reduce identically.
-        t1, t0 = ops.exp_elog_beta(lamb_b)
-        if cfg.stats_kernel == "fused_v2":
-            gamma_stat, l0s, l1s = pk.batch_stats_fused_v2_packed(
-                rows, u, t1, t0, tb=tb, tw=tw, dtype=kdtype,
-                interpret=interpret, approx_div=cfg.stats_approx_div)
-            l0s = psum_ind(l0s)
-            l1s = psum_ind(l1s)
-        else:
-            l0r, l1r = pk.lambda_stats_packed(
-                rows, u_planes, t1, t0, tb=tb, tw=tw, dtype=kdtype,
-                interpret=interpret)
-            l0s = t1 * psum_ind(l0r)
-            l1s = t0 * psum_ind(l1r)
-            g = pk.gamma_stats_packed(
-                rows, u_planes, t1, t0, tb=tb, tw=tw, dtype=kdtype,
-                interpret=interpret)
-            gamma_stat = u * pk.planes_to_flat(g)       # local individuals
-
-        if not local_mode:
-            new_lamb_b = jnp.stack(
-                [cfg.beta_a + l0s, cfg.beta_b + l1s], axis=-1)
-            lamb_l = lamb_l.at[idx].set(new_lamb_b)
-
-        return lamb_l, gamma_stat
 
     def _stats_from_rows(gamma_l, lamb_l, rows, idx, t, kb):
         """Everything after the minibatch gather: the local solve and
@@ -391,72 +209,23 @@ def _build_step_parts(cfg: SVIConfig, plan: ShardPlan, mesh: Mesh):
         mode). Returns (lamb_l, gamma_stat_local) with the gamma
         statistic NOT yet psum'ed over 'snp' — the caller inserts the
         collective so the chunk runner can overlap it with the next
-        step's minibatch gather (the scaling lever at high chip counts,
-        benchmarks/results/scaling_model.md). Shared by the resident
-        step (which samples+gathers on device) and the streaming step
-        (rows pre-gathered by the host)."""
-        wl = rows.shape[1]
-
-        if want_fused and fused_step.supports(b_local, wl, cfg.k, kdtype,
-                                              accel=cfg.local_accel):
-            rows_f = rows
-            u = ops.exp_elog_theta(gamma_l)
-            if u.shape[0] != 4 * wl:
-                u = jnp.pad(u, ((0, 4 * wl - u.shape[0]), (0, 0)),
-                            constant_values=1.0)
-            lamb_init = (jnp.zeros((b_local, cfg.k, 2), jnp.float32)
-                         if local_mode else lamb_l[idx])
-            new_lamb_b, g = fused_step.fused_local_solve(
-                rows_f, pk.u_to_planes(u), lamb_init,
-                local_iters=cfg.local_iters, local_tol=cfg.local_tol,
-                beta_a=cfg.beta_a, beta_b=cfg.beta_b, dtype=kdtype,
-                warm_start=not local_mode, interpret=interpret,
-                approx_div=cfg.stats_approx_div,
-                accel=cfg.local_accel)
-            gamma_stat = (u * pk.planes_to_flat(g))[: gamma_l.shape[0]]
-            if not local_mode:
-                lamb_l = lamb_l.at[idx].set(new_lamb_b)
-            return lamb_l, gamma_stat
-
-        if use_pk:
-            # Per-iteration Pallas kernels with psum('ind') BETWEEN
-            # kernel calls — the multi-host big-N hot path (each lambda
-            # statistic sums over individuals spanning ind shards; the
-            # coordinate-ascent loop stays in lockstep across 'ind'
-            # because every shard sees identical psum'ed stats). Big-N
-            # iteration subsampling (cfg.local_sub_n) applies per shard
-            # with globally-consistent N/Ns scaling.
-            return _local_step_pk(gamma_l, lamb_l, rows, t, kb, idx)
-
-        xb = _unpack_local(rows, rows.shape[1] * 4)     # (B_l, N/I)
-
-        a1, a0 = ops.allele_counts(xb, jnp.float32)
-        u = ops.exp_elog_theta(gamma_l)
-
-        lamb_b0 = (
-            jnp.stack(
-                [jnp.full((b_local, cfg.k), cfg.beta_a, jnp.float32),
-                 jnp.full((b_local, cfg.k), cfg.beta_b, jnp.float32)],
-                axis=-1)
-            if local_mode else lamb_l[idx]
-        )
-        lamb_b = ops.local_solve(
-            a1, a0, u, lamb_b0,
-            beta_a=cfg.beta_a, beta_b=cfg.beta_b,
-            local_iters=cfg.local_iters, local_tol=cfg.local_tol,
-            dtype=dtype, ind_reduce=psum_ind, accel=cfg.local_accel,
-        )
-        t1, t0 = ops.exp_elog_beta(lamb_b)
-        stats = ops.batch_stats(a1, a0, u, t1, t0, dtype, ind_reduce=psum_ind)
-
+        step's minibatch gather. Shared by the resident step (which
+        samples+gathers on device) and the streaming step (rows
+        pre-gathered by the host)."""
+        u = ops.exp_elog_theta(gamma_l)                 # (4*wl, K)
+        sub_key = None
+        if sub_cols:
+            i_idx = jax.lax.axis_index(IND_AXIS)
+            sub_key = jax.random.fold_in(jax.random.fold_in(kb, i_idx),
+                                         0x5B)
+        lamb_b0 = (local_step.prior_lambda(cfg, b_local) if local_mode
+                   else lamb_l[idx])
+        new_lamb_b, gamma_stat = local_step.step_stats(
+            cfg, kernel, rows, u, lamb_b0, sub_key=sub_key,
+            sub_cols=sub_cols, ind_reduce=psum_ind, interpret=interpret)
         if not local_mode:
-            new_lamb_b = jnp.stack(
-                [cfg.beta_a + stats.lam0_stat,
-                 cfg.beta_b + stats.lam1_stat], axis=-1
-            )
             lamb_l = lamb_l.at[idx].set(new_lamb_b)
-
-        return lamb_l, stats.gamma_stat
+        return lamb_l, gamma_stat
 
     def _apply_gamma(gamma_l, gamma_stat, t):
         """Robbins–Monro natural-gradient gamma update from the
@@ -473,38 +242,20 @@ def _build_step_parts(cfg: SVIConfig, plan: ShardPlan, mesh: Mesh):
         all-reduce latency window."""
         s_idx = jax.lax.axis_index(SNP_AXIS)
         kb = jax.random.fold_in(jax.random.fold_in(key, t), s_idx)
-        # Per-shard DMA block-gather (same unbiasedness argument as the
-        # single-device engine._sample_rows): the minibatch's local rows
-        # are drawn as b_local/8 uniform 8-row blocks of the SNP shard
-        # and fetched at copy bandwidth. TPU-only; threshold knob is on
-        # the PER-SHARD row count.
-        if kp.dma_blocks:
-            from terastructure_tpu.ops.gather import gather_row_blocks
-
-            blocks = jax.random.randint(
-                kb, (b_local // 8,), 0, l_local // 8, dtype=jnp.int32)
-            idx = (blocks[:, None] * 8
-                   + jnp.arange(8, dtype=jnp.int32)).reshape(b_local)
-            rows = gather_row_blocks(packed_l, blocks, block=8,
-                                     interpret=interpret)
-        else:
-            idx = jax.random.randint(kb, (b_local,), 0, l_local,
-                                     dtype=jnp.int32)
-            rows = packed_l[idx]
-        return rows, idx, kb
+        idx = jax.random.randint(kb, (b_local,), 0, l_local,
+                                 dtype=jnp.int32)
+        return packed_l[idx], idx, kb
 
     def _psum_gamma(gstat):
         """Reduce the per-shard gamma statistic over 'snp' in
-        cfg.gamma_psum_dtype (quality A/B for bf16:
-        benchmarks/results/gamma_bf16_ab.json).
+        cfg.gamma_psum_dtype.
 
         reduce_precision BEFORE the cast: a backend is free to promote
         the collective back to f32 and elide the convert pair (the
         emulated CPU mesh does — BFloat16Normalization; XLA's
         excess-precision simplifier can do the same to bare converts),
         but reduce_precision is contractually exact bf16 RN rounding,
-        so the partials are rounded on every backend. On TPU the bf16
-        cast then rides the ring natively at half payload."""
+        so the partials are rounded on every backend."""
         if cfg.gamma_psum_dtype == "bf16":
             gstat = jax.lax.reduce_precision(gstat, exponent_bits=8,
                                              mantissa_bits=7)
@@ -517,10 +268,10 @@ def _build_step_parts(cfg: SVIConfig, plan: ShardPlan, mesh: Mesh):
 
 
 def make_sharded_step(cfg: SVIConfig, plan: ShardPlan, mesh: Mesh,
-                      streaming: bool = False):
+                      streaming: bool = False, *, interpret: bool = False):
     """Build the shard_map'ed single step: (state, packed) -> state.
 
-    See _build_step_parts for the kernel-selection rules. For chunked
+    See _build_step_parts for the local solve. For chunked
     stepping prefer make_sharded_run_chunk, which pipelines the gamma
     all-reduce against the next step's minibatch gather.
 
@@ -532,7 +283,7 @@ def make_sharded_step(cfg: SVIConfig, plan: ShardPlan, mesh: Mesh,
     Requires lambda_mode='local' (nothing SNP-indexed to scatter back).
     """
     sample_gather, stats_from_rows, apply_gamma, psum_gamma = (
-        _build_step_parts(cfg, plan, mesh))
+        _build_step_parts(cfg, plan, mesh, interpret=interpret))
 
     def local_step(gamma_l, lamb_l, packed_l, t, key):
         # gamma_l: (N/I, K)  lamb_l: (L/S, K, 2)  packed_l: (L/S, W/I)
@@ -598,7 +349,8 @@ def make_sharded_step(cfg: SVIConfig, plan: ShardPlan, mesh: Mesh,
 
 
 def make_sharded_run_chunk(cfg: SVIConfig, plan: ShardPlan, mesh: Mesh,
-                           nsteps: int, *, overlap: bool | None = None):
+                           nsteps: int, *, overlap: bool | None = None,
+                           interpret: bool = False):
     """jit-compiled runner of `nsteps` sharded steps (one dispatch).
 
     The whole chunk runs as ONE shard_map around a local fori_loop, and
@@ -607,9 +359,9 @@ def make_sharded_run_chunk(cfg: SVIConfig, plan: ShardPlan, mesh: Mesh,
     consumes it. The gather depends only on (t, key), so XLA's
     latency-hiding scheduler can run the collective asynchronously
     (all-reduce-start before the gather, -done after), hiding the
-    (N/I, K) payload — the dominant communication term at high chip
-    counts (benchmarks/results/scaling_model.md) — behind the gather's
-    HBM traffic and the subsample decode. Semantics are EXACT: the
+    (N/I, K) payload — the one collective whose size grows with N and
+    not with B — behind the gather's memory traffic. Semantics are
+    EXACT: the
     update still consumes the fully-reduced statistic each step; only
     instruction order changes. Verified two ways: trajectory equality
     with the per-step runner (tests/test_sharded.py) and HLO dataflow
@@ -622,7 +374,7 @@ def make_sharded_run_chunk(cfg: SVIConfig, plan: ShardPlan, mesh: Mesh,
     if overlap is None:
         overlap = getattr(cfg, "comm_overlap", True)
     if not overlap:
-        step = make_sharded_step(cfg, plan, mesh)
+        step = make_sharded_step(cfg, plan, mesh, interpret=interpret)
 
         @functools.partial(jax.jit, donate_argnums=(0,))
         def run_chunk_plain(state: SVIState, packed) -> SVIState:
@@ -633,7 +385,7 @@ def make_sharded_run_chunk(cfg: SVIConfig, plan: ShardPlan, mesh: Mesh,
         return run_chunk_plain
 
     sample_gather, stats_from_rows, apply_gamma, psum_gamma = (
-        _build_step_parts(cfg, plan, mesh))
+        _build_step_parts(cfg, plan, mesh, interpret=interpret))
 
     def local_chunk(gamma_l, lamb_l, packed_l, t0, key):
         rows, idx, kb = sample_gather(packed_l, t0, key)
@@ -695,8 +447,10 @@ def shard_state(state: SVIState, plan: ShardPlan, mesh: Mesh) -> SVIState:
             gamma.shape, gsh, lambda idx: gamma[idx]),
         lamb=jax.make_array_from_callback(
             lamb.shape, lsh, lambda idx: lamb[idx]),
-        t=state.t,
-        key=state.key,
+        t=_replicated(np.asarray(state.t, np.int32), mesh),
+        key=(state.key
+             if jax.dtypes.issubdtype(state.key.dtype, jax.dtypes.prng_key)
+             else _replicated(state.key, mesh)),
     )
 
 
@@ -706,7 +460,7 @@ def shard_packed(cfg, data, mesh):
 
 
 def make_sharded_compute_lambda(cfg: SVIConfig, plan: ShardPlan, mesh: Mesh,
-                                *, block: int = 512):
+                                *, block: int = 512, interpret: bool = False):
     """Sharded compute-beta core: converged lambda for EVERY SNP row.
 
     The post-pass (svi/postprocess.compute_lambda, reference
@@ -719,74 +473,32 @@ def make_sharded_compute_lambda(cfg: SVIConfig, plan: ShardPlan, mesh: Mesh,
     Returns fn(gamma_sharded, packed_sharded) -> lamb (l_padded, K, 2)
     sharded with LAMB_SPEC.
     """
-    from terastructure_tpu.ops import stats_pallas as pk
-
+    kernel = resolve_kernel(cfg.kernel, cfg.compute_dtype, cfg.k,
+                            interpret=interpret)
     wl = packed_width(plan.n_padded) // plan.ind
     l_local = plan.l_padded // plan.snp
     blk = min(block, l_local)
     nblocks = (l_local + blk - 1) // blk
     pad_rows = nblocks * blk - l_local
     psum_ind = functools.partial(jax.lax.psum, axis_name=IND_AXIS)
-    interpret = jax.default_backend() != "tpu"
-    try:
-        pk_tiles = pk.pick_tiles(blk, wl)
-    except ValueError:
-        pk_tiles = None
-    use_pk = pk_tiles is not None and (
-        cfg.kernel == "pallas"
-        or (cfg.kernel in ("auto", "fused")
-            and jax.default_backend() == "tpu")
-    )
-    kdtype = (jnp.bfloat16 if cfg.compute_dtype == "bfloat16"
-              else jnp.float32)
 
     def local_solve_rows(gamma_l, packed_l):
         u = ops.exp_elog_theta(gamma_l)                 # (4*wl, K)
-        u_planes = pk.u_to_planes(u)
         rows_all = packed_l
         if pad_rows:
             rows_all = jnp.concatenate(
                 [rows_all, jnp.full((pad_rows, wl), 0xFF, jnp.uint8)])
         blocks = rows_all.reshape(nblocks, blk, wl)
-        lamb0 = jnp.stack(
-            [jnp.full((blk, cfg.k), cfg.beta_a, jnp.float32),
-             jnp.full((blk, cfg.k), cfg.beta_b, jnp.float32)], axis=-1)
-
-        def stats(rows, t1, t0):
-            """t-scaled lambda statistics, summed over ALL individuals
-            (t is shard-invariant, so psum after scaling is exact)."""
-            if use_pk:
-                tb, tw = pk_tiles
-                l0r, l1r = pk.lambda_stats_packed(
-                    rows, u_planes, t1, t0, tb=tb, tw=tw, dtype=kdtype,
-                    interpret=interpret)
-                l0r, l1r = t1 * l0r, t0 * l1r
-            else:
-                xb = _unpack_local(rows, 4 * wl)
-                a1, a0 = ops.allele_counts(xb, jnp.float32)
-                l0r, l1r = ops.lambda_stats(
-                    a1, a0, u, t1, t0, jnp.dtype(cfg.compute_dtype))
-            return psum_ind(l0r), psum_ind(l1r)
+        lamb0 = local_step.prior_lambda(cfg, blk)
 
         def solve_block(rows):
-            def iterate(lam):
-                t1, t0 = ops.exp_elog_beta(lam)
-                l0s, l1s = stats(rows, t1, t0)
-                return jnp.stack([cfg.beta_a + l0s,
-                                  cfg.beta_b + l1s], axis=-1)
-
-            # Unified schedule (stats_dense.solve_schedule) so sharded
-            # compute-beta == the single-device post-pass under the
-            # accel default (Aitken tail hoisted out of the loop).
-            lam = ops.solve_schedule(
-                iterate, lamb0, local_iters=cfg.local_iters,
-                local_tol=cfg.local_tol, accel=cfg.local_accel)
-            # final exact update from the converged t's (matches
-            # postprocess.solve_lambda_blocks' trailing stats pass)
-            t1, t0 = ops.exp_elog_beta(lam)
-            l0s, l1s = stats(rows, t1, t0)
-            return jnp.stack([cfg.beta_a + l0s,
-                              cfg.beta_b + l1s], axis=-1)
+            # Same schedule and trailing exact pass as the single-device
+            # post-pass (postprocess.solve_lambda_blocks).
+            lam = local_step.solve(cfg, kernel, rows, u, lamb0,
+                                   ind_reduce=psum_ind, interpret=interpret)
+            return local_step.make_pass(cfg, kernel, rows, u,
+                                        ind_reduce=psum_ind,
+                                        interpret=interpret)(lam)
 
         lamb = jax.lax.map(solve_block, blocks)
         return lamb.reshape(-1, cfg.k, 2)[:l_local]

@@ -1,12 +1,12 @@
 """The SVI engine — single-device jittable step and step-chunk runner.
 
-TPU-native re-architecture of the reference inference loop
+Accelerator re-architecture of the reference inference loop
 (`SNPSamplingE::infer`, src/snpsamplinge.cc, SURVEY.md §3.1):
 
   repeat:
     sample SNP minibatch B                      (here: on-device PRNG)
     local step: phi <-> lambda_B to convergence (bounded lax.while_loop,
-                                                 all-matmul, ops/stats_dense)
+                                                 ops/local_step)
     global step: natural-gradient gamma update scaled by L/|B|,
                  Robbins-Monro rho_t = (tau0+t)^-kappa
     scatter converged lambda_B back into lambda
@@ -15,9 +15,9 @@ The *inverted* global/local split (SURVEY.md §7.4) is preserved: gamma
 (per-individual) is the stochastically updated global state; lambda_j is
 local to the sampled SNP and set by full coordinate ascent.
 
-Design notes (TPU):
-  - The packed genotype matrix stays uint8 (L, ceil(N/4)) in HBM; a step
-    gathers B rows and unpacks on device (data/pack.unpack2bit_jnp).
+Design notes:
+  - The packed genotype matrix stays uint8 (L, ceil(N/4)) in device
+    memory; a step gathers B rows and decodes them on device.
   - `make_run_chunk` wraps `nsteps` steps in one lax.fori_loop under a
     single jit, so the host only syncs at validation boundaries (rfreq).
   - RNG: one base PRNGKey, `fold_in(step)` per iteration — reproducible
@@ -34,9 +34,10 @@ import jax.numpy as jnp
 import numpy as np
 
 from terastructure_tpu.config import SVIConfig
-from terastructure_tpu.data.pack import unpack2bit_jnp
 from terastructure_tpu.models import psd
+from terastructure_tpu.ops import local_step
 from terastructure_tpu.ops import stats_dense as ops
+from terastructure_tpu.ops.lambda_pass import resolve_kernel
 
 
 class SVIState(NamedTuple):
@@ -86,31 +87,6 @@ def _group_size(cfg: SVIConfig, l_sample: int) -> int:
     return g
 
 
-def _sample_rows(cfg: SVIConfig, packed, key, l_sample, *, interpret):
-    """Sample the SNP minibatch and gather its packed genotype rows.
-
-    DMA block-gather path (SVIConfig.dma_gather): at biobank L the
-    minibatch is drawn as batch_size/8 uniform 8-row-aligned blocks of
-    consecutive SNPs and fetched by ops/gather.gather_row_blocks —
-    concurrent HBM->HBM DMAs at copy bandwidth instead of XLA's
-    ~1 us/row gather. Block draws keep the gamma estimate unbiased
-    (every SNP equally likely, scale L/B unchanged — same argument as
-    SVIConfig.snp_group). Otherwise: independent per-row draws + XLA
-    fancy-index gather. Returns (idx (B,), rows (B, W))."""
-    b = cfg.batch_size
-    if (cfg.dma_gather and not interpret and l_sample >= cfg.dma_gather_min_l
-            and l_sample % 8 == 0 and b % 128 == 0):
-        from terastructure_tpu.ops.gather import gather_row_blocks
-
-        blocks = jax.random.randint(
-            key, (b // 8,), 0, l_sample // 8, dtype=jnp.int32)
-        idx = (blocks[:, None] * 8
-               + jnp.arange(8, dtype=jnp.int32)).reshape(b)
-        return idx, gather_row_blocks(packed, blocks, block=8)
-    idx = _sample_batch(key, l_sample, b)
-    return idx, packed[idx]
-
-
 def _gather_batch(cfg: SVIConfig, packed, lamb, key, l_sample):
     """Sample the minibatch and gather its genotype rows + lambda rows.
 
@@ -144,113 +120,23 @@ def _gather_batch(cfg: SVIConfig, packed, lamb, key, l_sample):
     return idx, rows, lamb_b, scatter
 
 
-def _resolve_kernel(cfg: SVIConfig) -> str:
-    if cfg.kernel != "auto":
-        return cfg.kernel
-    return "fused" if jax.default_backend() == "tpu" else "dense"
+def step_core(cfg: SVIConfig, kernel: str, gamma, rows, lamb_b, *,
+              key=None, interpret=False):
+    """Local solve + statistics from packed rows (B, W).
 
-
-def step_core_packed(cfg: SVIConfig, gamma, rows, lamb_b, *,
-                     interpret=False, key=None):
-    """Local solve + stats from packed rows (B, W) — fused Pallas path.
-
-    Pads the byte-width, batch, and individual axes to kernel tiles
-    inside the trace (padding decodes as MISSING / contributes zero).
+    `key` seeds the big-N iteration subsample (ops/local_step.py).
     Returns (new_lamb_b (B, K, 2), gamma_stat (N, K)).
-
-    Big-N optimization (cfg.local_sub_n): at K<=32 every MXU dot pads K
-    to 128 lanes, so each full (B, N) sweep costs ~128/K its useful
-    FLOPs and the coordinate ascent runs ~local_iters of them. When N is
-    large (and `key` is given) the ITERATIONS run on a random byte-
-    aligned subsample of ~local_sub_n individuals with N/Ns-scaled
-    statistics; the FINAL lambda + gamma statistics always come from one
-    exact full-N pass (batch_stats_packed below), so the update quality
-    matches the full solve up to one coordinate-ascent step of a
-    ~1/sqrt(Ns) perturbation. ~17 full sweeps -> ~3 full-sweep
-    equivalents: 5-10x at 100K+ individuals.
     """
-    from terastructure_tpu.ops import stats_pallas as pk
-
-    b, w = rows.shape
-    n = gamma.shape[0]
-    w_pad = (-w) % 128            # 4*(w+w_pad) = padded N for the kernel
-    n_padded = 4 * (w + w_pad)
-    has_tb = any(b % tt == 0 for tt in (256, 128, 64, 32, 16, 8))
-    b_pad = 0 if has_tb else (-b) % 8
-    if w_pad or b_pad:
-        rows = jnp.pad(rows, ((0, b_pad), (0, w_pad)), constant_values=0xFF)
-    wp = w + w_pad
-    tb, tw = pk.pick_tiles(b + b_pad, wp)
-
-    u = ops.exp_elog_theta(gamma)
-    if n_padded != n:
-        u = jnp.pad(u, ((0, n_padded - n), (0, 0)), constant_values=1.0)
-    if b_pad:
-        lamb_b = jnp.pad(lamb_b, ((0, b_pad), (0, 0), (0, 0)),
-                         constant_values=1.0)
-    dtype = (jnp.bfloat16 if cfg.compute_dtype == "bfloat16"
-             else jnp.float32)
-
-    sub_w = (cfg.local_sub_n // 4 // 128) * 128       # byte columns
-    if key is not None and sub_w >= 128 and wp >= 4 * sub_w:
-        # Byte-aligned individual subsample (4 individuals per column).
-        idx_w = jax.random.choice(key, wp, (sub_w,), replace=False)
-        rows_sub = rows[:, idx_w]
-        u_sub = u.reshape(wp, 4, -1)[idx_w].reshape(4 * sub_w, -1)
-        _, tw_sub = pk.pick_tiles(b + b_pad, sub_w)
-        solve = (pk.local_solve_acat if cfg.sub_decode_once
-                 else pk.local_solve_packed)
-        lamb_b = solve(
-            rows_sub, u_sub, lamb_b,
-            beta_a=cfg.beta_a, beta_b=cfg.beta_b,
-            local_iters=cfg.local_iters, local_tol=cfg.local_tol,
-            tb=tb, tw=tw_sub, dtype=dtype, interpret=interpret,
-            stat_scale=wp / sub_w, approx_div=cfg.local_sub_approx_div,
-            accel=cfg.local_accel,
-        )
-        if cfg.local_refine_full:
-            # Optional exact full-N refinement iteration between the
-            # subsampled solve and the final stats pass (the stats pass
-            # below is itself a full-N lambda iteration; see
-            # SVIConfig.local_refine_full).
-            lamb_b = pk.local_solve_packed(
-                rows, u, lamb_b,
-                beta_a=cfg.beta_a, beta_b=cfg.beta_b,
-                local_iters=1, local_tol=0.0,
-                tb=tb, tw=tw, dtype=dtype, interpret=interpret,
-            )
-    else:
-        lamb_b = pk.local_solve_packed(
-            rows, u, lamb_b,
-            beta_a=cfg.beta_a, beta_b=cfg.beta_b,
-            local_iters=cfg.local_iters, local_tol=cfg.local_tol,
-            tb=tb, tw=tw, dtype=dtype, interpret=interpret,
-            accel=cfg.local_accel,
-        )
-    e1, e0 = psd.elog_beta(lamb_b)
-    t1, t0 = jnp.exp(e1), jnp.exp(e0)
-    # Exact full-N stats pass — kernel choice per cfg.stats_kernel. The
-    # v1 one-kernel fusion lost to the two-kernel pair on v5e (13.4 vs
-    # 12.5 ms at N=100K B=4096 K=10) because its lambda dynamic-slice
-    # read-modify-write cost more than the saved D-dot; v2 removes the
-    # RMW (per-w-tile lambda partials, reduced outside) and keeps the
-    # shared unpack + D-dot.
-    if cfg.stats_kernel == "fused_v2":
-        gamma_stat, l0, l1 = pk.batch_stats_fused_v2_packed(
-            rows, u, t1, t0, tb=tb, tw=tw, dtype=dtype, interpret=interpret,
-            approx_div=cfg.stats_approx_div)
-    else:
-        stats_fn = {"pair": pk.batch_stats_packed,
-                    "fused": pk.batch_stats_fused_packed}[cfg.stats_kernel]
-        gamma_stat, l0, l1 = stats_fn(
-            rows, u, t1, t0, tb=tb, tw=tw, dtype=dtype, interpret=interpret)
-    new_lamb_b = jnp.stack(
-        [cfg.beta_a + l0, cfg.beta_b + l1], axis=-1)[:b]
-    return new_lamb_b, gamma_stat[:n]
+    w = rows.shape[1]
+    u = local_step.pad_u(ops.exp_elog_theta(gamma), w)
+    new_lamb_b, gamma_stat = local_step.step_stats(
+        cfg, kernel, rows, u, lamb_b, sub_key=key,
+        sub_cols=local_step.sub_columns(cfg, w), interpret=interpret)
+    return new_lamb_b, gamma_stat[: gamma.shape[0]]
 
 
 def step_core_dense(cfg: SVIConfig, gamma, xb, lamb_b):
-    """Local solve + stats from an unpacked minibatch xb (B, N) — MXU path.
+    """Local solve + stats from an unpacked minibatch xb (B, N).
 
     Returns (new_lamb_b (B, K, 2), gamma_stat (N, K)).
     """
@@ -286,10 +172,9 @@ def _global_update(cfg: SVIConfig, gamma, gamma_stat, t, l_sample):
         # reduction boundary at bf16 precision, so one-chip and
         # multi-chip fits share semantics (not bitwise — the ring also
         # accumulates in bf16). reduce_precision, NOT an astype
-        # round-trip: XLA's excess-precision simplifier ELIDES
-        # f32->bf16->f32 convert pairs on TPU (measured: bit-identical
-        # trajectories), while reduce_precision is contractually exact
-        # bf16 RN rounding. Quality A/B: results/gamma_bf16_ab.json.
+        # round-trip: XLA's excess-precision simplifier may elide
+        # f32->bf16->f32 convert pairs, while reduce_precision is
+        # contractually exact bf16 RN rounding.
         gamma_stat = jax.lax.reduce_precision(gamma_stat,
                                               exponent_bits=8,
                                               mantissa_bits=7)
@@ -308,114 +193,48 @@ def step_on_batch(cfg: SVIConfig, gamma, lamb, xb, idx, t):
     return gamma, lamb
 
 
-def make_step(cfg: SVIConfig, l_sample: int | None = None):
+def make_step(cfg: SVIConfig, l_sample: int | None = None, *,
+              interpret: bool = False):
     """Build the jittable single-device SVI step: (state, packed) -> state.
 
     l_sample: the SNP range to sample over — pass the padded row count
     when the packed matrix has padding rows (defaults to cfg.l).
+    `interpret` runs the Triton kernel through the Pallas interpreter
+    (CPU tests only).
     """
-    impl_req = _resolve_kernel(cfg)
-    interpret = jax.default_backend() != "tpu"
+    kernel = resolve_kernel(cfg.kernel, cfg.compute_dtype, cfg.k,
+                            interpret=interpret)
     l_s = l_sample or cfg.l
     local_mode = cfg.lambda_mode == "local"
 
     def step(state: SVIState, packed) -> SVIState:
-        from terastructure_tpu.ops import fused_step
-
         gamma, lamb, t, key = state
         kb = jax.random.fold_in(key, t)
-        b = cfg.batch_size
-        w = packed.shape[1]
-        impl = impl_req
-        kdt = (jnp.bfloat16 if cfg.compute_dtype == "bfloat16"
-               else jnp.float32)
-        # Gate with the EXACT kernel parameters (k, dtype, accel) —
-        # fused_local_solve re-validates with them, so a mismatch here
-        # would trade a clean pallas fallback for a trace-time error
-        # (ADVICE r3 #1).
-        if impl == "fused" and not fused_step.supports(
-                b, w, cfg.k, kdt, accel=cfg.local_accel):
-            impl = "pallas"
-
-        if impl == "fused":
-            from terastructure_tpu.ops import stats_pallas as pk
-
-            g_dma = cfg.snp_group
-            use_dma = (g_dma >= 8 and g_dma % 8 == 0 and l_s % g_dma == 0
-                       and b % g_dma == 0 and l_s > 65536
-                       and not interpret)
-            u = ops.exp_elog_theta(gamma)
-            if u.shape[0] != 4 * w:
-                u = jnp.pad(u, ((0, 4 * w - u.shape[0]), (0, 0)),
-                            constant_values=1.0)
-            dtype = kdt
-            if use_dma:
-                gidx = jax.random.randint(
-                    kb, (b // g_dma,), 0, l_s // g_dma, dtype=jnp.int32)
-                idx0 = gidx * g_dma
-                idx = (idx0[:, None]
-                       + jnp.arange(g_dma, dtype=jnp.int32)).reshape(b)
-                lamb_init = (jnp.zeros((b, cfg.k, 2), jnp.float32)
-                             if local_mode else lamb[idx])
-                new_lamb_b, g = fused_step.fused_local_solve_dma(
-                    idx0, packed, pk.u_to_planes(u), lamb_init,
-                    group=g_dma,
-                    local_iters=cfg.local_iters, local_tol=cfg.local_tol,
-                    beta_a=cfg.beta_a, beta_b=cfg.beta_b, dtype=dtype,
-                    warm_start=not local_mode, interpret=interpret,
-                    approx_div=cfg.stats_approx_div,
-                    accel=cfg.local_accel)
-            else:
-                idx, rows = _sample_rows(cfg, packed, kb, l_s,
-                                         interpret=interpret)
-                lamb_init = (jnp.zeros((b, cfg.k, 2), jnp.float32)
-                             if local_mode else lamb[idx])
-                new_lamb_b, g = fused_step.fused_local_solve(
-                    rows, pk.u_to_planes(u), lamb_init,
-                    local_iters=cfg.local_iters, local_tol=cfg.local_tol,
-                    beta_a=cfg.beta_a, beta_b=cfg.beta_b, dtype=dtype,
-                    warm_start=not local_mode, interpret=interpret,
-                    approx_div=cfg.stats_approx_div,
-                    accel=cfg.local_accel)
-            gamma_stat = (u * pk.planes_to_flat(g))[: gamma.shape[0]]
-            if not local_mode:
-                lamb = lamb.at[idx].set(new_lamb_b)
+        if local_mode:
+            # Cold start from the prior: nothing SNP-indexed is gathered
+            # or scattered, so a plain per-row gather suffices.
+            idx = _sample_batch(kb, l_s, cfg.batch_size)
+            rows = packed[idx]
+            lamb_b = local_step.prior_lambda(cfg, cfg.batch_size)
+            scatter = None
         else:
-            if local_mode:
-                # Plain per-row gather. At big W the reshape-based
-                # grouped gather is 10x SLOWER on v5e (42 vs 4 ms at
-                # W=25088 B=4096, benchmarks/profile_bign.py) — grouping
-                # only pays in the fused path's in-kernel DMA gather.
-                idx, rows = _sample_rows(cfg, packed, kb, l_s,
-                                         interpret=interpret)
-                lamb_b = jnp.stack(
-                    [jnp.full((b, cfg.k), cfg.beta_a, jnp.float32),
-                     jnp.full((b, cfg.k), cfg.beta_b, jnp.float32)],
-                    axis=-1)
-                scatter = None
-            else:
-                idx, rows, lamb_b, scatter = _gather_batch(
-                    cfg, packed, lamb, kb, l_s)
-            if impl == "pallas":
-                new_lamb_b, gamma_stat = step_core_packed(
-                    cfg, gamma, rows, lamb_b, interpret=interpret,
-                    key=jax.random.fold_in(kb, 0x5B))
-            else:
-                xb = unpack2bit_jnp(rows, cfg.n)     # (B, N) int8
-                new_lamb_b, gamma_stat = step_core_dense(
-                    cfg, gamma, xb, lamb_b)
-            if scatter is not None:
-                lamb = scatter(lamb, new_lamb_b)
+            idx, rows, lamb_b, scatter = _gather_batch(
+                cfg, packed, lamb, kb, l_s)
+        new_lamb_b, gamma_stat = step_core(
+            cfg, kernel, gamma, rows, lamb_b,
+            key=jax.random.fold_in(kb, 0x5B), interpret=interpret)
+        if scatter is not None:
+            lamb = scatter(lamb, new_lamb_b)
         gamma = _global_update(cfg, gamma, gamma_stat, t, l_s)
         return SVIState(gamma=gamma, lamb=lamb, t=t + 1, key=key)
 
     return step
 
 
-def make_run_chunk(cfg: SVIConfig, nsteps: int, l_sample: int | None = None):
+def make_run_chunk(cfg: SVIConfig, nsteps: int, l_sample: int | None = None,
+                   *, interpret: bool = False):
     """jit-compiled runner of `nsteps` SVI steps (one host sync per chunk)."""
-    step = make_step(cfg, l_sample)
-
+    step = make_step(cfg, l_sample, interpret=interpret)
     @functools.partial(jax.jit, donate_argnums=(0,))
     def run_chunk(state: SVIState, packed) -> SVIState:
         def body(_, s):
@@ -435,7 +254,7 @@ def entry_loglik(gamma, lamb, ind_idx, snp_idx, x, form="plugin"):
 
 
 def make_entry_loglik_recompute(cfg: SVIConfig, eval_rows, row_of_entry,
-                                ind_idx, x, *, put=None):
+                                ind_idx, x, *, put=None, interpret=False):
     """Eval scorer for the 'local' lambda mode.
 
     eval_rows: (S, W) packed genotype rows of the distinct eval SNPs
@@ -452,8 +271,7 @@ def make_entry_loglik_recompute(cfg: SVIConfig, eval_rows, row_of_entry,
     if put is None:
         put = lambda a: jax.device_put(np.asarray(a))  # noqa: E731
     # Device-put ONCE and pass as jit arguments — closing over them
-    # captures multi-GB constants in the lowered program (observed
-    # 2.17 GB at N=100K), which crawls through the remote compiler.
+    # captures multi-GB constants in the lowered program.
     if not isinstance(eval_rows, jax.Array):
         eval_rows = put(np.asarray(eval_rows))
     row_of_entry = put(np.asarray(row_of_entry))
@@ -467,12 +285,9 @@ def make_entry_loglik_recompute(cfg: SVIConfig, eval_rows, row_of_entry,
 
     @jax.jit
     def f(gamma, eval_rows, row_of_entry, ind_idx, x):
-        u = ops.exp_elog_theta(gamma)
-        if u.shape[0] != 4 * w:
-            u = jnp.pad(u, ((0, 4 * w - u.shape[0]), (0, 0)),
-                        constant_values=1.0)
+        u = local_step.pad_u(ops.exp_elog_theta(gamma), w)
         lamb_eval = solve_lambda_blocks(cfg, u, eval_rows, block=1024,
-                                        sub_key=sub_key)
+                                        sub_key=sub_key, interpret=interpret)
         if cfg.predictive == "variational":
             return jnp.mean(psd.variational_predictive_loglik(
                 gamma[ind_idx], lamb_eval[row_of_entry], x))

@@ -2,9 +2,10 @@
 
 Reference parity: the `-compute-beta` mode (SURVEY.md §3.2) reloads a
 converged run's theta and, for each SNP j, runs the local phi/lambda fit
-with theta fixed, writing beta.txt. Here it is a lax.map over SNP blocks
-reusing the same local_solve kernel — embarrassingly parallel on the SNP
-axis (shard over 'snp' for multi-chip).
+with theta fixed, writing beta.txt. Here it is a loop over SNP blocks
+reusing the training step's local solve (ops/local_step.py) —
+embarrassingly parallel on the SNP axis (shard over 'snp' for
+multi-chip).
 
 `solve_lambda_blocks` is the shared core: it also powers the "local"
 lambda mode's on-demand eval/export recomputation (svi/driver.py).
@@ -17,13 +18,15 @@ import jax.numpy as jnp
 import numpy as np
 
 from terastructure_tpu.config import SVIConfig
-from terastructure_tpu.data.pack import unpack2bit_jnp
 from terastructure_tpu.models import psd
+from terastructure_tpu.ops import local_step
 from terastructure_tpu.ops import stats_dense as ops
+from terastructure_tpu.ops.lambda_pass import resolve_kernel
 
 
 def solve_lambda_blocks(cfg: SVIConfig, u, packed_rows, *,
-                        block: int = 1024, sub_key=None):
+                        block: int = 1024, sub_key=None,
+                        interpret: bool = False):
     """Converged lambda for each packed row given fixed u = expElogtheta.
 
     u: (N', K) where N' = 4 * packed_rows.shape[1] (caller pads);
@@ -31,80 +34,29 @@ def solve_lambda_blocks(cfg: SVIConfig, u, packed_rows, *,
 
     Rows are processed one fixed-size block at a time through a single
     jitted block solver — NOT by stacking all blocks first: packed_rows
-    may be an HBM-resident biobank matrix (reshuffling it would double
-    HBM) or a host memmap larger than HBM (each block is transferred on
-    demand). Only one (block, W) slice is live per iteration.
+    may be a device-resident biobank matrix (reshuffling it would double
+    device memory) or a host memmap larger than it (each block is
+    transferred on demand). Only one (block, W) slice is live per
+    iteration.
 
-    sub_key enables the big-N inner-loop subsample (cfg.local_sub_n, see
-    engine.step_core_packed): the coordinate-ascent ITERATIONS run on a
-    fixed byte-aligned individual subsample, the final lambda statistic
-    is one exact full-N pass. Pass a FIXED key (eval scoring) so scores
-    stay deterministic across checks.
+    sub_key enables the big-N iteration subsample (cfg.local_sub_n,
+    ops/local_step.py): the coordinate-ascent iterations run on a fixed
+    byte-column subsample, the final lambda statistic is one exact
+    pass. Pass a FIXED key (eval scoring) so scores stay deterministic
+    across checks.
     """
-    n = u.shape[0]
     s, w = packed_rows.shape
     nblocks = (s + block - 1) // block
+    kernel = resolve_kernel(cfg.kernel, cfg.compute_dtype, cfg.k,
+                            interpret=interpret)
+    lamb0 = local_step.prior_lambda(cfg, block)
+    sub_cols = local_step.sub_columns(cfg, w)
 
-    dtype = jnp.dtype(cfg.compute_dtype)
-    lamb0 = jnp.stack(
-        [jnp.full((block, cfg.k), cfg.beta_a, jnp.float32),
-         jnp.full((block, cfg.k), cfg.beta_b, jnp.float32)],
-        axis=-1,
-    )
-
-    # On TPU use the per-iteration Pallas kernels (the dense path
-    # materializes (block, N) float intermediates — prohibitive HBM
-    # churn for big N); dense elsewhere / in interpret-less CPU tests.
-    use_pallas = (jax.default_backend() == "tpu" and n % 512 == 0
-                  and block % 8 == 0 and (n // 4) % 128 == 0)
-    wp = n // 4
-    sub_w = (cfg.local_sub_n // 4 // 128) * 128
-    use_sub = sub_key is not None and sub_w >= 128 and wp >= 4 * sub_w
-    if use_sub:
-        idx_w = jax.random.choice(sub_key, wp, (sub_w,), replace=False)
-        u_sub = u.reshape(wp, 4, -1)[idx_w].reshape(4 * sub_w, -1)
-    else:
-        idx_w = u_sub = None
-
-    def solve_block(rows, u, lamb0, u_sub=None, idx_w=None):
-        if use_pallas:
-            from terastructure_tpu.ops import stats_pallas as pk
-
-            tb, tw = pk.pick_tiles(block, wp)
-            u_planes = pk.u_to_planes(u)
-            if use_sub:
-                _, tw_sub = pk.pick_tiles(block, sub_w)
-                lam = pk.local_solve_packed(
-                    rows[:, idx_w], u_sub, lamb0,
-                    beta_a=cfg.beta_a, beta_b=cfg.beta_b,
-                    local_iters=cfg.local_iters, local_tol=cfg.local_tol,
-                    tb=tb, tw=tw_sub, dtype=dtype,
-                    stat_scale=wp / sub_w, accel=cfg.local_accel)
-            else:
-                lam = pk.local_solve_packed(
-                    rows, u, lamb0,
-                    beta_a=cfg.beta_a, beta_b=cfg.beta_b,
-                    local_iters=cfg.local_iters, local_tol=cfg.local_tol,
-                    tb=tb, tw=tw, dtype=dtype, accel=cfg.local_accel)
-            e1, e0 = ops.exp_elog_beta(lam)
-            l0, l1 = pk.lambda_stats_packed(
-                rows, u_planes, e1, e0, tb=tb, tw=tw, dtype=dtype)
-            return jnp.stack(
-                [cfg.beta_a + e1 * l0, cfg.beta_b + e0 * l1], axis=-1)
-        xb = unpack2bit_jnp(rows, n)
-        a1, a0 = ops.allele_counts(xb, jnp.float32)
-        lam = ops.local_solve(
-            a1, a0, u, lamb0,
-            beta_a=cfg.beta_a, beta_b=cfg.beta_b,
-            local_iters=cfg.local_iters, local_tol=cfg.local_tol,
-            dtype=dtype, accel=cfg.local_accel,
-        )
-        t1, t0 = ops.exp_elog_beta(lam)
-        stats = ops.batch_stats(a1, a0, u, t1, t0, dtype)
-        return jnp.stack(
-            [cfg.beta_a + stats.lam0_stat, cfg.beta_b + stats.lam1_stat],
-            axis=-1,
-        )
+    def solve_block(rows, u, lamb0):
+        lam = local_step.solve(cfg, kernel, rows, u, lamb0, sub_key=sub_key,
+                               sub_cols=sub_cols, interpret=interpret)
+        return local_step.make_pass(cfg, kernel, rows, u,
+                                    interpret=interpret)(lam)
 
     solve = jax.jit(solve_block)
     outs = []
@@ -115,7 +67,7 @@ def solve_lambda_blocks(cfg: SVIConfig, u, packed_rows, *,
         if hi - lo < block:
             rows = jnp.concatenate(
                 [rows, jnp.full((block - (hi - lo), w), 0xFF, jnp.uint8)])
-        outs.append(solve(rows, u, lamb0, u_sub, idx_w))
+        outs.append(solve(rows, u, lamb0))
     out = outs[0] if nblocks == 1 else jnp.concatenate(outs, axis=0)
     return out[:s]
 
@@ -123,11 +75,8 @@ def solve_lambda_blocks(cfg: SVIConfig, u, packed_rows, *,
 def compute_lambda(cfg: SVIConfig, gamma, packed, *, block: int = 1024):
     """Full-matrix converged lambda (L, K, 2) given gamma — used by the
     'local' lambda mode before export, and by compute_beta."""
-    u = ops.exp_elog_theta(jnp.asarray(gamma))
-    w = packed.shape[1]
-    if u.shape[0] != 4 * w:   # pad individuals to the byte boundary;
-        u = jnp.pad(u, ((0, 4 * w - u.shape[0]), (0, 0)),
-                    constant_values=1.0)  # padding genotypes are MISSING
+    u = local_step.pad_u(ops.exp_elog_theta(jnp.asarray(gamma)),
+                         packed.shape[1])
     lamb = solve_lambda_blocks(cfg, u, packed, block=block)
     return lamb[: cfg.l]
 

@@ -12,7 +12,7 @@ validation ll to <out_prefix>.<pid>.npz for the parent test to compare.
 mode="stream" keeps the packed slice HOST-side and drives
 parallel.stream.ShardedBatchStream's multi-process branch (per-process
 addressable-block assembly) — the exact data path a literal config #5
-(1M x 1M) run would execute across hosts (VERDICT r3 weak #5).
+(1M x 1M) run would execute across hosts.
 """
 
 import os

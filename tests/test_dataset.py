@@ -44,8 +44,8 @@ def test_simulate_respects_missing_frac():
 
 
 def test_from_bed_is_packed_native(tmp_path, monkeypatch):
-    """from_bed must never densify (biobank RSS requirement, VERDICT r1
-    item 1): the carve works on the 2-bit matrix directly."""
+    """from_bed must never densify (biobank RSS requirement): the
+    carve works on the 2-bit matrix directly."""
     import terastructure_tpu.data.dataset as ds
     from terastructure_tpu.data import GenotypeData, simulate_psd
     from terastructure_tpu.data.bed import write_bed, write_bim, write_fam

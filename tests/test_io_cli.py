@@ -201,29 +201,29 @@ def test_idfile_overrides_output_labels(tmp_path):
 
 
 def test_cli_fast_preset_maps_to_config():
-    """--fast maps to stats_approx_div; defaults are accel7; an explicit
+    """--kernel maps to the config; defaults are accel7; an explicit
     --local-iters runs the plain schedule unless paired with --accel
-    (ADVICE r4: no silent accel16); --no-accel alone means plain16."""
+    (no silent accel16); --no-accel alone means plain16."""
     import terastructure_tpu.cli as c
 
     ns = _parse_cli(["fit", "--simulate", "-n", "64", "-l", "128",
-                     "-k", "2", "--fast"])
+                     "-k", "2", "--kernel", "triton"])
     cfg = c._cfg_from_args(ns, 64, 128)
-    assert cfg.local_iters == 7 and cfg.stats_approx_div
+    assert cfg.local_iters == 7 and cfg.kernel == "triton"
     assert cfg.local_accel
 
     ns2 = _parse_cli(["fit", "--simulate", "-n", "64", "-l", "128",
                       "-k", "2"])
     cfg2 = c._cfg_from_args(ns2, 64, 128)
     assert cfg2.local_iters == 7 and cfg2.local_accel
-    assert not cfg2.stats_approx_div
+    assert cfg2.kernel == "auto"
 
     # explicit iters WITHOUT --accel: plain schedule (pre-round-4
     # invocations like --local-iters 16 keep their meaning)
     ns3 = _parse_cli(["fit", "--simulate", "-n", "64", "-l", "128",
-                      "-k", "2", "--fast", "--local-iters", "12"])
+                      "-k", "2", "--local-iters", "12"])
     cfg3 = c._cfg_from_args(ns3, 64, 128)
-    assert cfg3.local_iters == 12 and cfg3.stats_approx_div
+    assert cfg3.local_iters == 12
     assert not cfg3.local_accel
 
     ns3b = _parse_cli(["fit", "--simulate", "-n", "64", "-l", "128",

@@ -262,11 +262,12 @@ def test_svi_informed_inits_shapes_and_overdispersion():
 
 
 def test_potential_matmul_uses_highest_precision():
-    """On TPU the MXU's default-precision matmul runs bf16 passes; that
-    noise enters every NUTS gradient/Hamiltonian and froze the chains
-    (eps ~6e-5, all-coordinate R-hat > 1.2 at 500x1000 K=3) while the
-    identical program mixed on CPU. Pin precision=HIGHEST in the
-    potential's likelihood matmul via the jaxpr."""
+    """An accelerator's default-precision matmul rounds its operands
+    (bf16 passes or TF32); that noise enters every NUTS
+    gradient/Hamiltonian and froze the chains (eps ~6e-5, all-coordinate
+    R-hat > 1.2 at 500x1000 K=3) while the identical program mixed on
+    CPU. Pin precision=HIGHEST in the potential's likelihood matmul via
+    the jaxpr."""
     from terastructure_tpu.mcmc.potential import PSDPotential, init_params
 
     x = np.zeros((4, 6), np.int8)
@@ -350,7 +351,7 @@ def test_chees_traj_mult_truncation_clamps_and_reports():
     """A huge sample_traj_mult must clamp the sampling trajectory to
     eps * max_leapfrog (the per-chunk leapfrog bucket cap) and surface
     traj_truncated=True in the diagnostics; a modest multiplier at an
-    ample max_leapfrog reports False (pins the ADVICE r3 #3 fix)."""
+    ample max_leapfrog reports False."""
     from terastructure_tpu.mcmc.chees import run_chees
 
     def log_prob(params):

@@ -1,4 +1,4 @@
-"""Reference-parity readiness (VERDICT r1 item 6).
+"""Reference-parity readiness.
 
 `/root/reference` has been EMPTY every round so far (SURVEY.md §0). The
 mount-dependent checks below skip cleanly while it stays empty and run

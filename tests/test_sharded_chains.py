@@ -1,5 +1,5 @@
 """Device-sharded chains/particles (BASELINE.json:4) and per-chain label
-alignment (VERDICT r1 item 3).
+alignment.
 
 Sharding the vmapped chain/particle axis must not change values: same
 keys -> same samples whether the axis lives on 1 or 8 devices.
@@ -101,7 +101,7 @@ def test_chain_alignment_fixes_label_switched_rhat():
 
 
 def test_ess_detects_unmixed_chains():
-    """ADVICE r1 (medium): ESS must NOT over-report for chains at
+    """ESS must NOT over-report for chains at
     different means (B/n term was computed from centered data)."""
     from terastructure_tpu.mcmc.diagnostics import ess, split_rhat
 

@@ -1,23 +1,19 @@
-"""Unified accel x local_tol schedule (VERDICT r4 weak #3).
+"""Unified accel x local_tol schedule.
 
-Every local-solve path (dense XLA, per-iteration Pallas, fused kernel)
-must run the SAME schedule — with accel: a tol-gated loop capped at
+Every local-solve path (dense XLA pass, fused GPU kernel pass) must run
+the SAME schedule — with accel: a tol-gated loop capped at
 local_iters-2 passes, then two ALWAYS-run tail passes + one clamped
 Aitken extrapolation (ops/stats_dense.solve_schedule). These tests pin
 the semantics with a local_tol that actually FIRES mid-loop, the case
-the pre-round-5 paths disagreed on (dense skipped the extrapolation on
-early exit; the fused kernel always ran its unrolled tail).
+where paths with their own schedules would disagree.
 """
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from terastructure_tpu.config import SVIConfig
 from terastructure_tpu.data.pack import pack2bit, unpack2bit_jnp
-from terastructure_tpu.ops import fused_step
 from terastructure_tpu.ops import stats_dense as ops
-from terastructure_tpu.ops import stats_pallas as pk
 
 
 def _problem(b=16, n=512, l=64, k=3, seed=3):
@@ -98,10 +94,11 @@ def _firing_tol(packed, gamma, idx, n, local_iters):
 
 
 def test_fused_matches_dense_when_tol_fires():
-    """The VERDICT item-4 'done' test: fused == dense == pallas with
-    accel ON and a local_tol that fires mid-loop. Before round 5 the
-    dense path skipped the Aitken tail on early exit while the fused
-    kernel ran it — kernel choice changed numerics by shape."""
+    """The fused GPU kernel (interpreted) and the dense pass run the same
+    schedule with accel ON and a local_tol that fires mid-loop: the
+    kernel choice must not change the numerics."""
+    from terastructure_tpu.ops import local_step
+
     packed, gamma, idx = _problem()
     n = gamma.shape[0]
     iters = 7
@@ -118,45 +115,11 @@ def test_fused_matches_dense_when_tol_fires():
 
     u = ops.exp_elog_theta(gamma)
     b, k = idx.shape[0], gamma.shape[1]
-
-    got_fused, _ = fused_step.fused_local_solve(
-        packed[idx], pk.u_to_planes(u), jnp.zeros((b, k, 2), jnp.float32),
-        local_iters=iters, local_tol=tol, beta_a=1.0, beta_b=1.0,
-        dtype=jnp.float32, warm_start=False, interpret=True, accel=True)
-    # the fused kernel's output INCLUDES the final stats pass (one more
-    # lambda update from the converged t's), mirroring the engine's
-    # trailing batch_stats — apply the same pass to the dense result
-    xb = unpack2bit_jnp(packed, n)[idx]
-    a1, a0 = ops.allele_counts(xb, jnp.float32)
-    t1, t0 = ops.exp_elog_beta(want)
-    l0, l1 = ops.lambda_stats(a1, a0, u, t1, t0, jnp.float32)
-    want_final = jnp.stack([1.0 + l0, 1.0 + l1], axis=-1)
-    np.testing.assert_allclose(np.asarray(got_fused),
-                               np.asarray(want_final),
-                               rtol=2e-4, atol=2e-4)
-
-    tb, tw = pk.pick_tiles(b, packed.shape[1])
-    got_pk = pk.local_solve_packed(
-        packed[idx], u, jnp.ones((b, k, 2), jnp.float32),
-        beta_a=1.0, beta_b=1.0, local_iters=iters, local_tol=tol,
-        tb=tb, tw=tw, dtype=jnp.float32, interpret=True, accel=True)
-    np.testing.assert_allclose(np.asarray(got_pk), np.asarray(want),
-                               rtol=2e-4, atol=2e-4)
-
-
-def test_acat_solve_matches_packed_when_tol_fires():
-    """Decode-once variant runs the same unified schedule."""
-    packed, gamma, idx = _problem(seed=5)
-    n = gamma.shape[0]
-    iters = 7
-    tol, _ = _firing_tol(packed, gamma, idx, n, iters)
-    u = ops.exp_elog_theta(gamma)
-    b, k = idx.shape[0], gamma.shape[1]
-    tb, tw = pk.pick_tiles(b, packed.shape[1])
-    kw = dict(beta_a=1.0, beta_b=1.0, local_iters=iters, local_tol=tol,
-              tb=tb, tw=tw, dtype=jnp.float32, interpret=True, accel=True)
+    cfg = SVIConfig(n=n, l=packed.shape[0], k=k, local_iters=iters,
+                    local_tol=tol, local_accel=True)
     lamb0 = jnp.ones((b, k, 2), jnp.float32)
-    got_a = pk.local_solve_acat(packed[idx], u, lamb0, **kw)
-    got_p = pk.local_solve_packed(packed[idx], u, lamb0, **kw)
-    np.testing.assert_allclose(np.asarray(got_a), np.asarray(got_p),
-                               rtol=1e-5, atol=1e-5)
+    for kernel in ("triton", "dense"):
+        got = local_step.solve(cfg, kernel, packed[idx], u, lamb0,
+                               interpret=True)
+        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                                   rtol=2e-4, atol=2e-4)

@@ -140,7 +140,7 @@ def test_solve_lambda_blocks_memmap_input(tmp_path):
                                rtol=1e-6, atol=1e-6)
 
 
-# ---- sharded streaming (parallel/stream.py): VERDICT r2 item #3 ---------
+# ---- sharded streaming (parallel/stream.py) ------------------------------
 
 import pytest  # noqa: E402
 
